@@ -6,18 +6,29 @@
 Phases, each of which fails the run on error:
 
 1. device   require CUDA; print the card's name and power limit.
-2. build    compile every CUDA kernel of the serving path (nvcc, sm_90a).
+2. build    compile every CUDA kernel of the port (nvcc, sm_90a), one nvcc
+            per source, all started together.
 3. kernels  hold each kernel against its plain PyTorch version on the card,
-            bit for bit (integer outputs, tolerance 0), at the serving path's
-            shapes and a few more; time kernel and plain version.
+            bit for bit (integer outputs, tolerance 0), at the serving
+            paths' shapes and a few more; time kernel and plain version.
+            The fused wave kernel (tnn_wave), then the per-layer kernels:
+            column forward (tnn_column), STDP update (stdp_update) and the
+            standalone WTA (wta).
 4. serve    the launcher at full width (625 sites, 64 slots, 512 requests,
-            4 STDP warm-up waves, impl=fused) on the card, with every kernel
-            launch counted; then the same launcher on the CPU (plain path,
-            same seeds) must give the same warmed weights, vote table and
-            class id for every request. Then the same requests served again
-            in steady state, and once under torch.profiler.
-5. report   one JSON line per run with every kernel's numbers, the card's
-            nvidia-smi line, then the result line.
+            4 STDP warm-up waves) on the card, with every kernel launch
+            counted from 0 for each path: first ``--impl pallas`` (the
+            per-layer kernels, the launcher's default), then ``--impl fused``
+            (the wave kernel). The fused run must equal the same launcher
+            on the CPU (plain path, same seeds), and the pallas run must
+            equal the fused run: warmed weights, vote table and the class id
+            of every request. Then each engine serves the same requests in
+            steady state and once under torch.profiler.
+5. fallback a "fused" network the wave kernel cannot hold (layer-1 fan-in
+            600) runs forward and one learning wave on the card through the
+            per-layer kernels, and equals its plain version.
+6. report   one JSON line with the serve and shape numbers, one with every
+            kernel's numbers, the card's nvidia-smi line, then the result
+            line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,38 +48,50 @@ import torch  # noqa: E402
 from repro_torch.configs.tnn_mnist import (  # noqa: E402
     deep_config, launcher_network_config, network_config,
 )
-from repro_torch.core.column import (  # noqa: E402
-    ColumnConfig, body_potential, crossing_time,
-)
+from repro_torch.core.column import ColumnConfig  # noqa: E402
 from repro_torch.core.layer import LayerConfig  # noqa: E402
-from repro_torch.core.network import NetworkConfig  # noqa: E402
-from repro_torch.core.temporal import WaveSpec  # noqa: E402
+from repro_torch.core.network import (  # noqa: E402
+    NetworkConfig, _uses_fused_wave, network_forward, network_train_wave,
+)
+from repro_torch.core.stdp import default_stabilize_table  # noqa: E402
+from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
-from repro_torch.kernels import _build, tnn_wave  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, stdp_update, tnn_column, tnn_wave, wta,
+)
 from repro_torch.kernels.padding import network_plan  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
-# rate outside the tensor cores, used for the kernel's 32-bit integer
+# rate outside the tensor cores, used for the kernels' 32-bit integer
 # arithmetic (int32 is not faster, so this keeps the bound a lower bound).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
+KERNELS = ("tnn_wave", "tnn_column", "stdp_update", "wta")
 SERVE_ARGS = ["--arch", "tnn-mnist", "--sites", "625", "--slots", "64",
-              "--requests", "512", "--train-waves", "4", "--impl", "fused"]
+              "--requests", "512", "--train-waves", "4"]
+TRAIN_WAVES, SLOTS, REQUESTS, FIT_IMAGES = 4, 64, 512, 256
+T, W_MAX = 8, 7
+STDP_TABLE = default_stabilize_table(W_MAX)
+MU = dict(mu_capture=10 / 16, mu_backoff=6 / 16, mu_search=2 / 16)
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+def _gen(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
 def _rand_inputs(cfg: NetworkConfig, B: int, seed: int, dev: torch.device):
     """Seeded volleys, weights and STDP uniforms, drawn on the host."""
-    g = torch.Generator().manual_seed(seed)
-    T = cfg.layers[0].column.wave.T
+    g = _gen(seed)
+    T_ = cfg.layers[0].column.wave.T
     C, p1 = cfg.layers[0].n_cols, cfg.layers[0].column.p
-    x = torch.randint(0, T + 1, (B, C, p1), generator=g, dtype=torch.uint8)
+    x = torch.randint(0, T_ + 1, (B, C, p1), generator=g, dtype=torch.uint8)
     ws = [torch.randint(0, l.column.wave.w_max + 1,
                         (l.n_cols, l.column.p, l.column.q), generator=g,
                         dtype=torch.int8) for l in cfg.layers]
@@ -78,7 +101,34 @@ def _rand_inputs(cfg: NetworkConfig, B: int, seed: int, dev: torch.device):
 
 
 def _max_err(a, b) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def _require_exact(name: str, err: int) -> int:
+    if err:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version "
+                             f"(max_abs_err={err})")
+    return err
+
+
+def reset_counts() -> None:
+    tnn_wave.LAUNCHES.reset()
+    for mod in (tnn_column, stdp_update, wta):
+        mod.LAUNCHES.reset()
+
+
+def read_counts() -> dict:
+    return {"tnn_wave[forward]": tnn_wave.LAUNCHES.forward,
+            "tnn_wave[learn]": tnn_wave.LAUNCHES.learn,
+            "tnn_column": tnn_column.LAUNCHES.n,
+            "stdp_update": stdp_update.LAUNCHES.n, "wta": wta.LAUNCHES.n}
+
+
+# ---------------------------------------------------------------------------
+# The fused wave kernel (port slice 1)
+# ---------------------------------------------------------------------------
 
 
 def check_case(name, cfg, B, seed, dev):
@@ -94,16 +144,12 @@ def check_case(name, cfg, B, seed, dev):
     torch.cuda.synchronize()
     err = 0
     for a, b in list(zip(zk, zp)) + list(zip(zlk, zlp)) + list(zip(nk, np_)):
-        if a.shape != b.shape:
-            raise AssertionError(f"{name}: shape {tuple(a.shape)} != {tuple(b.shape)}")
         err = max(err, _max_err(a, b))
     spikes = [int((z < plan.T).sum()) for z in zk]
     nets = [int(n.abs().sum()) for n in nk]
     print(f"  {name}: B={B} thetas={plan.thetas} spikes/layer={spikes} "
           f"|net|/layer={nets} max_abs_err={err}", flush=True)
-    if err:
-        raise AssertionError(f"{name}: kernel disagrees with the plain version")
-    return err
+    return _require_exact(name, err)
 
 
 def time_cuda(fn, iters: int) -> float:
@@ -120,20 +166,60 @@ def time_cuda(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def on_card(events):
+    """The card's own events (kernels, copies) of a profile: a host op's
+    entry repeats the device time of the kernels it launched."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time per call over ``iters`` calls, after a warm-up call:
+    the card's own events under torch.profiler. Unlike CUDA events around
+    back-to-back calls it leaves out the host's time between launches,
+    which for a ~30 us kernel behind a Python wrapper is of the same size."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in on_card(prof.key_averages()))
+    if busy_us <= 0:
+        raise AssertionError("the profile shows no device time")
+    return busy_us / 1e3 / iters
+
+
+def in_turns(kernel, plain, iters: int, plain_iters: int = 5):
+    """(kernel ms, plain ms, readings): device ms per call in turns, plain,
+    kernel, kernel, plain, each the best of its two; then the kernel's
+    CUDA-event ms per call (host gaps included)."""
+    plain_a = device_ms(plain, plain_iters)
+    ms_a = device_ms(kernel, iters)
+    ms_b = device_ms(kernel, iters)
+    plain_b = device_ms(plain, plain_iters)
+    events = time_cuda(kernel, iters)
+    return (min(ms_a, ms_b), min(plain_a, plain_b),
+            (plain_a, ms_a, ms_b, plain_b, events))
+
+
+def column_ops(x, w, theta: int) -> int:
+    """The direct ramp form's min + add per synapse for each tick up to the
+    neuron's crossing (all T ticks when it never crosses), from the data."""
+    z_pre = tnn_column.column_forward_layer_plain(x, w, theta=theta, T=T, wta=False)
+    ticks = torch.where(z_pre < T, z_pre.to(torch.int64) + 1, T)
+    return 2 * x.shape[2] * int(ticks.sum())
+
+
 def forward_work(cfg, x, ws, plan):
     """(bytes, operations) one forward wave needs: every input read once and
-    every output written once; the direct ramp form's min + add per synapse
-    for each tick up to the neuron's crossing (all T ticks when it never
-    crosses), counted from this run's data."""
+    every output written once; the ramp work counted from this run's data."""
     B, C, p1 = x.shape
-    spec = cfg.layers[0].column.wave
     nbytes = x.numel() + sum(w.numel() for w in ws) + sum(B * C * q for q in plan.qs)
     ops, v = 0, x
-    for w, theta, p in zip(ws, plan.thetas, plan.ps):
-        z_pre = crossing_time(body_potential(v.transpose(0, 1), w, spec), theta, spec)
-        ticks = torch.where(z_pre < spec.T, z_pre.to(torch.int64) + 1, spec.T)
-        ops += 2 * p * int(ticks.sum())
-        v = tnn_wave._layer_plain(v, w, theta, spec)
+    for w, theta in zip(ws, plan.thetas):
+        ops += column_ops(v, w, theta)
+        v = tnn_wave._layer_plain(v, w, theta, cfg.layers[0].column.wave)
     return nbytes, ops
 
 
@@ -144,9 +230,21 @@ def bound(nbytes: int, ops: int):
             t_bytes, t_ops)
 
 
+def _timing(name, B, kernel_ms, plain_ms, readings, nbytes, ops):
+    bms, by, bytes_ms, ops_ms = bound(nbytes, ops)
+    print(f"  {name} B={B}: kernel {readings[1]:.4f}/{readings[2]:.4f} ms on the "
+          f"card ({readings[4]:.4f} ms per call by CUDA events), plain "
+          f"{readings[0]:.3f}/{readings[3]:.3f} ms, bound {bms:.5f} ms ({by}; "
+          f"{nbytes} bytes = {bytes_ms:.6f} ms, {ops} ops = {ops_ms:.6f} ms)",
+          flush=True)
+    return dict(B=B, ms=kernel_ms, plain_ms=plain_ms, events_ms=readings[4],
+                bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
 def measure(cfg, dev):
-    """Kernel and plain ms at the serving shapes: forward at B=64 and learn
-    at B=16, full width, the served thresholds."""
+    """Wave kernel and plain ms at the fused path's shapes: forward at B=64
+    and learn at B=16, full width, the served thresholds."""
     out = {}
     for half, B, iters in (("forward", 64, 200), ("learn", 16, 100)):
         x, ws, us = _rand_inputs(cfg, B, seed=11, dev=dev)
@@ -158,72 +256,15 @@ def measure(cfg, dev):
         else:
             k = lambda: tnn_wave.wave_train(x, ws, pairs, plan=plan)  # noqa: E731
             p = lambda: tnn_wave.wave_train_plain(x, ws, pairs, plan=plan)  # noqa: E731
-        plain_a = time_cuda(p, 5)  # in turns: plain, kernel, kernel, plain
-        ms_a = time_cuda(k, iters)
-        ms_b = time_cuda(k, iters)
-        plain_b = time_cuda(p, 5)
+        ms, plain_ms, readings = in_turns(k, p, iters)
         nbytes, ops = forward_work(cfg, x, ws, plan)
         if half == "learn":
             pq = sum(p_ * q_ for p_, q_ in zip(plan.ps, plan.qs))
             C = plan.n_cols
             nbytes += 8 * C * B * pq + 4 * C * pq  # uniforms in, nets out
             ops += 2 * C * B * pq                  # the two Bernoulli compares
-        bms, by, bytes_ms, ops_ms = bound(nbytes, ops)
-        out[half] = dict(B=B, ms=min(ms_a, ms_b), plain_ms=min(plain_a, plain_b),
-                         bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                         bytes_ms=bytes_ms, ops_ms=ops_ms)
-        print(f"  {half} B={B}: kernel {ms_a:.4f}/{ms_b:.4f} ms, plain "
-              f"{plain_a:.3f}/{plain_b:.3f} ms, bound {bms:.5f} ms ({by}; "
-              f"{nbytes} bytes = {bytes_ms:.6f} ms, {ops} ops = "
-              f"{ops_ms:.6f} ms)", flush=True)
+        out[half] = _timing(half, B, ms, plain_ms, readings, nbytes, ops)
     return out
-
-
-def profile_serve(rep, dev, repeats: int = 5):
-    """Steady-state serving with the launcher's warmed weights: the same 512
-    requests served ``repeats`` times untraced (images/s, p50/p95 of each),
-    then once under torch.profiler for where the time goes: device busy
-    time by kernel, host time by op, and the device's idle share of the
-    wall time. Every pass must give the launcher's class ids."""
-    cfg = launcher_network_config(625, impl="fused")
-    eng = TNNEngine(cfg, rep.params, n_slots=64, impl="fused", device=dev)
-    eng.fit(*digits(256, seed=1))
-    imgs = digits(512, seed=2)[0]
-
-    def run():
-        eng.reset()
-        for uid in range(512):
-            eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
-        t0 = time.perf_counter()
-        done = eng.run_until_done()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if {u: r.result for u, r in done.items()} != rep.results:
-            raise AssertionError("steady-state serve changed a class id")
-        return wall, eng.stats()
-
-    run()  # warm-up pass
-    steady = [run() for _ in range(repeats)]
-    for wall, st in steady:
-        print(f"  steady: {st.images_per_s:.1f} images/s, {st.waves_per_s:.1f} "
-              f"waves/s, p50 {st.p50_ms:.3f} ms, p95 {st.p95_ms:.3f} ms", flush=True)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall, st = run()
-    events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events)
-    print(f"  traced pass: wall {1e3 * wall:.3f} ms for {st.waves} waves; device "
-          f"busy {busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / (1e6 * wall):.3f}", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
-    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]:
-        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
-    return {"steady_images_per_s": [s.images_per_s for _, s in steady],
-            "steady_p50_ms": [s.p50_ms for _, s in steady],
-            "steady_p95_ms": [s.p95_ms for _, s in steady],
-            "traced_wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1 - busy_us / (1e6 * wall)}
 
 
 def caps_config(C: int) -> NetworkConfig:
@@ -233,6 +274,324 @@ def caps_config(C: int) -> NetworkConfig:
     l1 = LayerConfig(C, ColumnConfig(p=512, q=128, theta=300, wave=wave, impl="fused"))
     l2 = LayerConfig(C, ColumnConfig(p=128, q=128, theta=3, wave=wave, impl="fused"))
     return NetworkConfig(layers=(l1, l2))
+
+
+# ---------------------------------------------------------------------------
+# The per-layer kernels (port slice 2)
+# ---------------------------------------------------------------------------
+
+
+def _spikes(g, shape, dev):
+    return torch.randint(0, T + 1, shape, generator=g, dtype=torch.uint8).to(dev)
+
+
+def _weights(g, shape, dev):
+    return torch.randint(0, W_MAX + 1, shape, generator=g, dtype=torch.int8).to(dev)
+
+
+def check_column(name, x, w, theta, wta_on=True):
+    """Column kernel vs plain on the card; returns (err, z as uint8)."""
+    zk = tnn_column.column_forward_layer(x, w, theta=theta, T=T, wta=wta_on)
+    zp = tnn_column.column_forward_layer_plain(x, w, theta=theta, T=T, wta=wta_on)
+    torch.cuda.synchronize()
+    err = _max_err(zk, zp)
+    if zk.dtype != torch.int32:
+        raise AssertionError(f"{name}: z is {zk.dtype}, not int32")
+    print(f"  column {name}: x {tuple(x.shape)} w {tuple(w.shape)} theta={theta} "
+          f"wta={wta_on} spikes={int((zk < T).sum())} max_abs_err={err}", flush=True)
+    return _require_exact(f"column {name}", err), zk.to(SPIKE_DTYPE)
+
+
+def check_columns(dev):
+    err = 0
+    for th1, th2 in ((24, 8), (12, 3)):
+        g = _gen(100 + th1)
+        x = _spikes(g, (64, 625, 32), dev)
+        w1, w2 = _weights(g, (625, 32, 12), dev), _weights(g, (625, 12, 10), dev)
+        e, z1 = check_column(f"full layer 1 B=64 theta=({th1},{th2})", x, w1, th1)
+        err = max(err, e)
+        e, _ = check_column(f"full layer 2 B=64 theta=({th1},{th2})", z1, w2, th2)
+        err = max(err, e)
+    g = _gen(110)
+    w1 = _weights(g, (625, 32, 12), dev)
+    for B in (13, 300):
+        e, _ = check_column(f"full layer 1 B={B}", _spikes(g, (B, 625, 32), dev), w1, 12)
+        err = max(err, e)
+    e, _ = check_column("full layer 1 no WTA", _spikes(g, (64, 625, 32), dev), w1, 12,
+                        wta_on=False)
+    err = max(err, e)
+    for label, (C, B, p, q, theta) in (
+            ("one column p=1024 q=16", (1, 64, 1024, 16, 600)),
+            ("q=128", (132, 40, 32, 128, 24)),
+            ("p=2048 q=128 (weights from device memory)", (4, 8, 2048, 128, 4000))):
+        x = _spikes(g, (B, C, p), dev)
+        x = x.transpose(0, 1).contiguous().transpose(0, 1) if C > 1 else x  # strided
+        e, _ = check_column(label, x, _weights(g, (C, p, q), dev), theta)
+        err = max(err, e)
+    return err
+
+
+def check_stdp_one(name, w, x, z, u, out):
+    kw = dict(T=T, w_max=W_MAX, table=STDP_TABLE, out=out, **MU)
+    rk = stdp_update.stdp_update_layer(w, x, z, u[:, 0], u[:, 1], **kw)
+    rp = stdp_update.stdp_update_layer_plain(w, x, z, u[:, 0], u[:, 1], **kw)
+    torch.cuda.synchronize()
+    err = _max_err(rk, rp)
+    moved = rk if out == "net" else rk - w.to(torch.int32)
+    print(f"  stdp {name} out={out}: w {tuple(w.shape)} B={x.shape[0]} "
+          f"|moved|={int(moved.abs().sum())} max_abs_err={err}", flush=True)
+    return _require_exact(f"stdp {name}", err)
+
+
+def _stdp_inputs(g, C, B, dev, th1=12):
+    """Both layers' STDP inputs: random volleys into layer 1, layer 1's
+    post-WTA output into layer 2, as the warm-up wave has them."""
+    x = _spikes(g, (B, C, 32), dev)
+    w1, w2 = _weights(g, (C, 32, 12), dev), _weights(g, (C, 12, 10), dev)
+    z1 = tnn_column.column_forward_layer_plain(x, w1, theta=th1, T=T, wta=True).to(SPIKE_DTYPE)
+    z2 = tnn_column.column_forward_layer_plain(z1, w2, theta=3, T=T, wta=True).to(SPIKE_DTYPE)
+    u1 = torch.rand((C, 2, B, 32, 12), generator=g).to(dev)
+    u2 = torch.rand((C, 2, B, 12, 10), generator=g).to(dev)
+    return [(w1, x, z1, u1), (w2, z1, z2, u2)]
+
+
+def check_stdps(dev):
+    err = 0
+    g = _gen(200)
+    for l, (w, x, z, u) in enumerate(_stdp_inputs(g, 625, 16, dev), start=1):
+        for out in ("weights", "net"):
+            for kind, uu in (("random", u), ("all-0", torch.zeros_like(u)),
+                             ("all-1", torch.ones_like(u))):
+                err = max(err, check_stdp_one(f"full layer {l} B=16 {kind}",
+                                              w, x, z, uu, out))
+    # several batch chunks: more rows than one chunk of staged volleys holds
+    for l, (w, x, z, u) in enumerate(_stdp_inputs(g, 8, 1000, dev), start=1):
+        err = max(err, check_stdp_one(f"8 sites layer {l} B=1000", w, x, z, u, "net"))
+    return err
+
+
+def check_wtas(dev):
+    err = 0
+    g = _gen(300)
+    ties = torch.randint(T - 2, T + 1, (4096, 12), generator=g, dtype=torch.int32)
+    silent = torch.full((4096, 12), T, dtype=torch.int32)
+    silent[::3, 5] = T - 1
+    for name, z in (("(64*625, 12)", torch.randint(0, T + 1, (64 * 625, 12),
+                                                   generator=g, dtype=torch.int32)),
+                    ("q=128", torch.randint(0, T + 1, (4096, 128), generator=g,
+                                            dtype=torch.int32)),
+                    ("ties", ties), ("all-T rows", silent)):
+        z = z.to(dev)
+        zk, zp = wta.wta(z, T=T), wta.wta_plain(z, T=T)
+        torch.cuda.synchronize()
+        e = _max_err(zk, zp)
+        winners = int((zk < T).sum())
+        if int(((zk < T).sum(-1) > 1).sum()):
+            raise AssertionError(f"wta {name}: a row kept two spikes")
+        print(f"  wta {name}: winners={winners} max_abs_err={e}", flush=True)
+        err = max(err, _require_exact(f"wta {name}", e))
+    return err
+
+
+def measure_layer_kernels(dev):
+    """Per-layer kernels and plain versions at the pallas path's shapes.
+    Column: one served wave, layer 1 + layer 2 at B=64 and the served
+    thresholds (24, 8). STDP: one warm-up wave, both layers at B=16,
+    out="weights". WTA: one (64*625, 12) call. The pallas path launches
+    the two layers equally often, so a kernel's ms, plain ms and bound are
+    the mean over its two layers' launches: launches x ms is its device
+    time on the path, and twice the ms is one wave's worth."""
+    g = _gen(400)
+    out = {}
+    # column forward
+    x = _spikes(g, (64, 625, 32), dev)
+    w1, w2 = _weights(g, (625, 32, 12), dev), _weights(g, (625, 12, 10), dev)
+    z1 = tnn_column.column_forward_layer(x, w1, theta=24, T=T, wta=True).to(SPIKE_DTYPE)
+    layers = [(x, w1, 24), (z1, w2, 8)]
+    per, tot = [], dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    for l, (xl, wl, th) in enumerate(layers, start=1):
+        k = lambda: tnn_column.column_forward_layer(xl, wl, theta=th, T=T, wta=True)  # noqa: E731
+        p = lambda: tnn_column.column_forward_layer_plain(xl, wl, theta=th, T=T, wta=True)  # noqa: E731
+        ms, plain_ms, readings = in_turns(k, p, 200)
+        nbytes = xl.numel() + wl.numel() + 4 * xl.shape[0] * wl.shape[0] * wl.shape[2]
+        per.append(_timing(f"column layer {l}", 64, ms, plain_ms, readings, nbytes,
+                           column_ops(xl, wl, th)))
+    out["tnn_column"] = _mean_timing(per)
+    # STDP update
+    per = []
+    for l, (w, xl, z, u) in enumerate(_stdp_inputs(g, 625, 16, dev, th1=24), start=1):
+        kw = dict(T=T, w_max=W_MAX, table=STDP_TABLE, out="weights", **MU)
+        k = lambda: stdp_update.stdp_update_layer(w, xl, z, u[:, 0], u[:, 1], **kw)  # noqa: E731
+        p = lambda: stdp_update.stdp_update_layer_plain(w, xl, z, u[:, 0], u[:, 1], **kw)  # noqa: E731
+        ms, plain_ms, readings = in_turns(k, p, 100)
+        C, pp, q = w.shape
+        B = xl.shape[0]
+        # w, x, z and the two uniform tensors in; the int32 result out; two
+        # Bernoulli compares per (row, synapse)
+        nbytes = C * pp * q + B * C * pp + B * C * q + 8 * C * B * pp * q + 4 * C * pp * q
+        per.append(_timing(f"stdp layer {l}", B, ms, plain_ms, readings, nbytes,
+                           2 * C * B * pp * q))
+    out["stdp_update"] = _mean_timing(per)
+    # WTA
+    z = torch.randint(0, T + 1, (64 * 625, 12), generator=g, dtype=torch.int32).to(dev)
+    ms, plain_ms, readings = in_turns(lambda: wta.wta(z, T=T),
+                                      lambda: wta.wta_plain(z, T=T), 200)
+    # z in and out as int32; key, running min and select per element
+    out["wta"] = _timing("wta (64*625, 12)", z.shape[0], ms, plain_ms, readings,
+                         8 * z.numel(), 3 * z.numel())
+    return out
+
+
+def _mean_timing(per):
+    """One launch's numbers, averaged over equally frequent launches."""
+    n = len(per)
+    nbytes, ops = sum(t["bytes"] for t in per) / n, sum(t["ops"] for t in per) / n
+    bms, by, bytes_ms, ops_ms = bound(nbytes, ops)
+    return dict(B=per[0]["B"], ms=sum(t["ms"] for t in per) / n,
+                plain_ms=sum(t["plain_ms"] for t in per) / n,
+                events_ms=sum(t["events_ms"] for t in per) / n, bound_ms=bms,
+                bound_by=by, bytes=nbytes, ops=ops, bytes_ms=bytes_ms,
+                ops_ms=ops_ms, per_layer=per)
+
+
+# ---------------------------------------------------------------------------
+# Serving paths
+# ---------------------------------------------------------------------------
+
+
+def serve_path(impl: str, dev):
+    """One launcher run on the card with every count set to 0 just before
+    it and read just after."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = launch_serve.main(SERVE_ARGS + ["--impl", impl, "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    st = rep.stats
+    print(f"  {impl} launcher wall {wall:.2f} s; launches {counts}", flush=True)
+    if st.requests != REQUESTS or len(rep.results) != REQUESTS:
+        raise AssertionError(f"{impl}: served {st.requests} of {REQUESTS} requests")
+    if not all(0 <= c < 10 for c in rep.results.values()):
+        raise AssertionError(f"{impl}: class id out of range")
+    if not torch.isfinite(rep.vote_table).all():
+        raise AssertionError(f"{impl}: vote table is not finite")
+    return rep, counts, wall
+
+
+def expected_launches(n_layers: int, served_waves: int) -> dict:
+    """Per-layer launches of one launcher run: a forward per layer for each
+    warm-up wave, fit chunk, served wave and the spike-count pass; an STDP
+    update per layer for each warm-up wave."""
+    forwards = TRAIN_WAVES + FIT_IMAGES // SLOTS + served_waves + 1
+    return {"tnn_column": n_layers * forwards,
+            "stdp_update": n_layers * TRAIN_WAVES}
+
+
+def same_result(a, b, what: str) -> None:
+    for l, (wa, wb) in enumerate(zip(a.params, b.params)):
+        if not torch.equal(wa.cpu(), wb.cpu()):
+            raise AssertionError(f"{what}: warmed layer-{l} weights differ")
+    if not torch.equal(a.vote_table.cpu(), b.vote_table.cpu()):
+        raise AssertionError(f"{what}: vote tables differ")
+    diff = [u for u in b.results if a.results[u] != b.results[u]]
+    if diff or len(a.results) != len(b.results):
+        raise AssertionError(f"{what}: {len(diff)} class ids differ")
+
+
+def profile_serve(rep, dev, impl: str, repeats: int = 5):
+    """Steady-state serving with the launcher's warmed weights: the same 512
+    requests served ``repeats`` times untraced (images/s, p50/p95 of each),
+    then once under torch.profiler for where the time goes: device busy
+    time by kernel, host time by op, and the device's idle share of the
+    wall time. Every pass must give the launcher's class ids."""
+    cfg = launcher_network_config(625, impl=impl)
+    eng = TNNEngine(cfg, rep.params, n_slots=SLOTS, impl=impl, device=dev)
+    eng.fit(*digits(FIT_IMAGES, seed=1))
+    imgs = digits(REQUESTS, seed=2)[0]
+
+    def run():
+        eng.reset()
+        for uid in range(REQUESTS):
+            eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if {u: r.result for u, r in done.items()} != rep.results:
+            raise AssertionError(f"{impl}: steady-state serve changed a class id")
+        return wall, eng.stats()
+
+    run()  # warm-up pass
+    steady = [run() for _ in range(repeats)]
+    for wall, st in steady:
+        print(f"  {impl} steady: {st.images_per_s:.1f} images/s, {st.waves_per_s:.1f} "
+              f"waves/s, p50 {st.p50_ms:.3f} ms, p95 {st.p95_ms:.3f} ms", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, st = run()
+    events = prof.key_averages()
+    card = on_card(events)
+    busy_us = sum(e.self_device_time_total for e in card)
+    if busy_us <= 0:
+        raise AssertionError(f"{impl}: the traced pass shows no device time")
+    print(f"  {impl} traced pass: wall {1e3 * wall:.3f} ms for {st.waves} waves; "
+          f"device busy {busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / (1e6 * wall):.3f}", flush=True)
+    top = sorted(card, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    return {"steady_images_per_s": [s.images_per_s for _, s in steady],
+            "steady_p50_ms": [s.p50_ms for _, s in steady],
+            "steady_p95_ms": [s.p95_ms for _, s in steady],
+            "traced_wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / (1e6 * wall),
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top[:4]}}
+
+
+def wide_config(C: int) -> NetworkConfig:
+    """A "fused" network the wave kernel cannot hold: layer-1 fan-in 600
+    is over its p1 cap, so it runs layer by layer on the per-layer
+    kernels, as the reference's does."""
+    wave = WaveSpec()
+    l1 = LayerConfig(C, ColumnConfig(p=600, q=12, theta=300, wave=wave, impl="fused"))
+    l2 = LayerConfig(C, ColumnConfig(p=12, q=10, theta=3, wave=wave, impl="fused"))
+    return NetworkConfig(layers=(l1, l2))
+
+
+def fallback_path(dev):
+    """Forward and one learning wave of the wide "fused" network on the card
+    (counts from 0) against the same calls on the CPU (the plain path)."""
+    cfg = wide_config(16)
+    if _uses_fused_wave(cfg):
+        raise AssertionError("the wide network should not fit the wave kernel")
+    x, ws, us = _rand_inputs(cfg, 32, seed=500, dev=torch.device("cpu"))
+    reset_counts()
+    zk = network_forward(x.to(dev), [w.to(dev) for w in ws], cfg)
+    zlk, nwk = network_train_wave(x.to(dev), [w.to(dev) for w in ws], cfg,
+                                  uniforms=[u.to(dev) for u in us])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    zp = network_forward(x, ws, cfg)
+    zlp, nwp = network_train_wave(x, ws, cfg, uniforms=us)
+    err = 0
+    for a, b in list(zip(zk, zp)) + list(zip(zlk, zlp)) + list(zip(nwk, nwp)):
+        err = max(err, _max_err(a.cpu(), b))
+    print(f"  fused p1=600, 16 sites, B=32: launches {counts}; spikes/layer="
+          f"{[int((z < T).sum()) for z in zk]} weights moved="
+          f"{sum(int((a.cpu() != b).sum()) for a, b in zip(nwk, ws))} "
+          f"max_abs_err={err}", flush=True)
+    _require_exact("fallback network", err)
+    want = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 4,
+            "stdp_update": 2, "wta": 0}
+    if counts != want:
+        raise AssertionError(f"fallback launches {counts}, expected {want}")
+    return err, counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -254,16 +613,21 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    tnn_wave.build()
-    print(f"  tnn_wave built/loaded in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in _build.build_log("tnn_wave").splitlines():
-        if "registers" in line or "smem" in line or line.startswith("["):
-            print(f"  {line.strip()}")
+    _build.build_all(KERNELS)
+    for mod in (tnn_wave, tnn_column, stdp_update, wta):
+        mod.build()
+    print(f"  {', '.join(KERNELS)} built/loaded in {time.perf_counter() - t0:.1f} s "
+          f"(in parallel)", flush=True)
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "smem" in line or line.startswith("["):
+                print(f"  {name}: {line.strip()}")
 
-    phase("kernels vs plain (bit for bit)")
+    phase("kernels vs plain (bit for bit): tnn_wave")
     full_hi = network_config(625, 24, 8, impl="fused")    # the served thresholds
     full_lo = network_config(625, 12, 3, impl="fused")    # both layers fire
     deep = deep_config(625, widths=(12, 12, 10), thetas=(12, 3, 1), impl="fused")
+    errs = {}
     err = 0
     for name, cfg, B, seed in (
             ("full theta=(24,8) serve", full_hi, 64, 1),
@@ -276,72 +640,100 @@ def main() -> int:
             ("deep depth-3 learn", deep, 16, 8),
             ("caps p1=512 q=128", caps_config(132), 40, 9)):
         err = max(err, check_case(name, cfg, B, seed, dev))
+    errs["tnn_wave"] = err
     timing = measure(full_hi, dev)
 
-    phase("serve (main path: launcher on the card, full width)")
-    tnn_wave.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    rep = launch_serve.main(SERVE_ARGS + ["--device", "cuda"])
-    torch.cuda.synchronize()
-    launches = tnn_wave.LAUNCHES.forward, tnn_wave.LAUNCHES.learn
-    wall = time.perf_counter() - t0
-    st = rep.stats
-    print(f"  launcher wall {wall:.2f} s; tnn_wave launches: forward "
-          f"{launches[0]}, learn {launches[1]}", flush=True)
-    train_waves = 4
-    if launches[1] < train_waves:
-        raise AssertionError(f"{launches[1]} learn launches for {train_waves} warm-up waves")
-    if launches[0] < st.waves:
-        raise AssertionError(f"{launches[0]} forward launches for {st.waves} served waves")
-    if st.requests != 512 or len(rep.results) != 512:
-        raise AssertionError(f"served {st.requests} of 512 requests")
-    if not all(0 <= c < 10 for c in rep.results.values()):
-        raise AssertionError("class id out of range")
-    if not torch.isfinite(rep.vote_table).all():
-        raise AssertionError("vote table is not finite")
+    phase("kernels vs plain (bit for bit): tnn_column, stdp_update, wta")
+    errs["tnn_column"] = check_columns(dev)
+    errs["stdp_update"] = check_stdps(dev)
+    errs["wta"] = check_wtas(dev)
+    layer_timing = measure_layer_kernels(dev)
 
-    phase("serve on the CPU (plain path, same seeds)")
+    phase("serve, impl=pallas (main path: launcher on the card, full width)")
+    rep_p, counts_p, _ = serve_path("pallas", dev)
+    want = expected_launches(2, rep_p.stats.waves)
+    want.update({"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "wta": 0})
+    if counts_p != want:
+        raise AssertionError(f"pallas serve launches {counts_p}, expected {want}")
+
+    phase("serve, impl=fused (launcher on the card, full width)")
+    rep_f, counts_f, _ = serve_path("fused", dev)
+    if counts_f["tnn_wave[learn]"] != TRAIN_WAVES:
+        raise AssertionError(f"{counts_f['tnn_wave[learn]']} learn launches for "
+                             f"{TRAIN_WAVES} warm-up waves")
+    if counts_f["tnn_wave[forward]"] < rep_f.stats.waves:
+        raise AssertionError(f"{counts_f['tnn_wave[forward]']} forward launches for "
+                             f"{rep_f.stats.waves} served waves")
+    if counts_f["tnn_column"] or counts_f["stdp_update"] or counts_f["wta"]:
+        raise AssertionError(f"the fused serve launched per-layer kernels: {counts_f}")
+
+    phase("serve on the CPU (plain path, same seeds) and across backends")
     t0 = time.perf_counter()
-    ref = launch_serve.main(SERVE_ARGS + ["--device", "cpu"])
+    ref = launch_serve.main(SERVE_ARGS + ["--impl", "fused", "--device", "cpu"])
     print(f"  cpu launcher wall {time.perf_counter() - t0:.2f} s", flush=True)
-    for l, (a, b) in enumerate(zip(rep.params, ref.params)):
-        if not torch.equal(a.cpu(), b):
-            raise AssertionError(f"warmed layer-{l} weights differ from the CPU run")
-    if not torch.equal(rep.vote_table.cpu(), ref.vote_table):
-        raise AssertionError("vote table differs from the CPU run")
-    diff = [u for u in ref.results if rep.results[u] != ref.results[u]]
-    if diff:
-        raise AssertionError(f"{len(diff)} class ids differ from the CPU run, "
-                             f"first uid {diff[0]}")
-    print(f"  card == cpu: warmed weights, vote table and all "
-          f"{len(ref.results)} class ids; layer spikes in the first served "
-          f"wave {rep.served_spikes} (the paper thresholds leave layer 2 "
-          f"silent at 625 sites, as in the reference)", flush=True)
+    same_result(rep_f, ref, "fused on the card vs the CPU")
+    same_result(rep_p, rep_f, "pallas vs fused on the card")
+    print(f"  pallas (card) == fused (card) == cpu: warmed weights, vote table "
+          f"and all {len(ref.results)} class ids; layer spikes in the first "
+          f"served wave {rep_p.served_spikes} (the paper thresholds leave "
+          f"layer 2 silent at 625 sites, as in the reference)", flush=True)
 
     phase("serve, steady state and traced")
-    prof = profile_serve(rep, dev)
+    prof = {impl: profile_serve(rep, dev, impl)
+            for impl, rep in (("pallas", rep_p), ("fused", rep_f))}
+
+    phase("fallback: a fused network the wave kernel cannot hold")
+    errs["fallback"], counts_fb = fallback_path(dev)
 
     phase("report")
-    src = "src/repro_torch/kernels/csrc/tnn_wave.cu"
-    replaces = "src/repro/kernels/tnn_wave.py:70"
     kernels = []
-    for half, n in (("forward", launches[0]), ("learn", launches[1])):
+    for half in ("forward", "learn"):
         t = timing[half]
+        name = f"tnn_wave[{half}]"
         kernels.append({
-            "name": f"tnn_wave[{half}]", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tnn_wave.cu",
+            "replaces": "src/repro/kernels/tnn_wave.py:70",
+            "launches": counts_f[name], "max_abs_err": errs["tnn_wave"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
+    for name, replaces in (("tnn_column", "src/repro/kernels/tnn_column.py:81"),
+                           ("stdp_update", "src/repro/kernels/stdp_update.py:67"),
+                           ("wta", "src/repro/kernels/wta.py:19")):
+        t = layer_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": counts_p[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        })
+
+    def serve_numbers(rep):
+        st = rep.stats
+        return {"waves": st.waves, "requests": st.requests,
+                "waves_per_s": st.waves_per_s, "images_per_s": st.images_per_s,
+                "p50_ms": st.p50_ms, "p95_ms": st.p95_ms,
+                "occupancy": st.occupancy, "accuracy": rep.accuracy}
+
+    keys = ("B", "bytes", "ops", "bytes_ms", "ops_ms", "events_ms")
+    shapes = {h: {k: t[k] for k in keys} for h, t in timing.items()}
+    for name, t in layer_timing.items():
+        shapes[name] = {k: t[k] for k in keys}
+        shapes[name]["per_layer"] = [
+            {k: p[k] for k in ("ms", "plain_ms", "events_ms", "bound_ms",
+                               "bound_by", "bytes", "ops")}
+            for p in t.get("per_layer", [])]
     print(json.dumps({
-        "serve": {"waves": st.waves, "requests": st.requests,
-                  "waves_per_s": st.waves_per_s, "images_per_s": st.images_per_s,
-                  "p50_ms": st.p50_ms, "p95_ms": st.p95_ms,
-                  "occupancy": st.occupancy, "accuracy": rep.accuracy,
-                  "warmup_spikes": rep.warmup_spikes,
-                  "served_spikes": rep.served_spikes, **prof},
-        "shapes": {h: {k: t[k] for k in ("B", "bytes", "ops", "bytes_ms", "ops_ms")}
-                   for h, t in timing.items()},
+        "serve": {"pallas": {**serve_numbers(rep_p), "launches": counts_p,
+                             **prof["pallas"]},
+                  "fused": {**serve_numbers(rep_f), "launches": counts_f,
+                            **prof["fused"]},
+                  "warmup_spikes": rep_p.warmup_spikes,
+                  "served_spikes": rep_p.served_spikes},
+        "fallback_launches": counts_fb,
+        "shapes": shapes,
         "seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,7 @@ from repro_torch.core.column import (
     ColumnConfig,
     body_potential,
     column_forward,
+    column_forward_matmul,
     crossing_time,
     init_weights,
     wta_inhibit,
@@ -23,6 +24,7 @@ from repro_torch.core.layer import (
     init_layer,
     layer_forward,
     layer_stdp_net,
+    layer_step,
     layer_uniforms,
 )
 from repro_torch.core.network import (

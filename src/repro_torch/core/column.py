@@ -7,6 +7,8 @@ of the port:
     WTA          = earliest spike wins, ties to the lowest index
 
 All arithmetic is int32, so results are exact on every device.
+:func:`column_forward_matmul` is the ``"matmul"`` backend, the same
+potential as a 0/1 product (exact in float32).
 """
 from __future__ import annotations
 
@@ -16,14 +18,23 @@ import torch
 
 from repro_torch.core.stdp import STDPConfig
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
+from repro_torch.device import resolve_device
+from repro_torch.kernels.tnn_column import ramp_matmul
 
 
 @dataclasses.dataclass(frozen=True)
 class ColumnConfig:
     """Static shape/hyper description of a p x q column (same fields and
     ``IMPLS`` as the reference, so configs compare field for field). The
-    port runs ``"direct"`` and ``"fused"``; ``"matmul"`` and ``"pallas"``
-    are refused by ``core.network.with_impl`` until they are ported."""
+    backends, all exactly equal:
+
+    * ``"direct"``: the plain broadcast evaluation below;
+    * ``"matmul"``: :func:`column_forward_matmul`, the 0/1 product form;
+    * ``"pallas"``: the per-layer Hopper kernels of ``kernels.ops``
+      (forward + WTA, and STDP, one launch each per layer);
+    * ``"fused"``: the whole-network wave kernel (``kernels.tnn_wave``), one
+      launch per gamma wave; a network outside its topology runs layer by
+      layer as ``"pallas"``."""
 
     p: int  # synapses per neuron (column fan-in)
     q: int  # neurons per column
@@ -45,13 +56,15 @@ class ColumnConfig:
 
 
 def init_weights(gen: torch.Generator, p: int, q: int, spec: WaveSpec,
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """Uniform-random initial weights in [0, w_max], int8. Drawn on the
-    generator's device and moved to ``device``, so a CPU generator gives
-    the same weights whatever device they end up on."""
+    generator's device and moved to ``device`` (the card unless the caller
+    names the CPU), so a CPU generator gives the same weights whatever
+    device they end up on."""
+    dev = resolve_device(device)
     w = torch.randint(0, spec.w_max + 1, (p, q), generator=gen,
                       dtype=torch.int8, device=gen.device)
-    return w.to(device)
+    return w.to(dev)
 
 
 def body_potential(x: torch.Tensor, w: torch.Tensor, spec: WaveSpec) -> torch.Tensor:
@@ -83,6 +96,20 @@ def crossing_time(V: torch.Tensor, theta, spec: WaveSpec) -> torch.Tensor:
 def column_forward(x: torch.Tensor, w: torch.Tensor, theta, spec: WaveSpec) -> torch.Tensor:
     """Pre-inhibition output spike times z_pre: (..., q)."""
     return crossing_time(body_potential(x, w, spec), theta, spec)
+
+
+def column_forward_matmul(x: torch.Tensor, w: torch.Tensor, theta,
+                          spec: WaveSpec) -> torch.Tensor:
+    """The ``"matmul"`` backend: the body potential as the A@N 0/1 product
+    (``kernels.tnn_column.ramp_matmul``), then the crossing time. x (..., p)
+    against w (p, q), or x (C, B, p) against per-column w (C, p, q) ->
+    (..., q). Every sum is at most p*T, so the float32 product is exact
+    (also in TF32, whose inputs hold 0 and 1 exactly). The reference
+    computes it in XLA outside any Pallas kernel, as a PyTorch product does
+    here."""
+    rows = x if w.dim() > 2 else x.reshape(-1, x.shape[-1])
+    V = ramp_matmul(rows, w, T=spec.T).reshape(*x.shape[:-1], spec.T, w.shape[-1])
+    return crossing_time(V.to(torch.int32), theta, spec)
 
 
 def wta_inhibit(z: torch.Tensor, spec: WaveSpec) -> torch.Tensor:

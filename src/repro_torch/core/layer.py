@@ -2,8 +2,13 @@
 
 A layer holds ``n_cols`` identical (p, q) columns; its weights are one
 ``(n_cols, p, q)`` int8 tensor, and the column axis is a batch axis of the
-plain functions. Only the ``"direct"`` path lives here: ``"fused"`` is a
-network-level fusion that ``core.network`` dispatches to the wave kernel.
+plain functions. The backend follows ``ColumnConfig.impl``, as in the
+reference: ``"direct"`` and ``"matmul"`` run the plain column functions
+over every column at once; ``"pallas"`` runs the layer through the
+per-layer Hopper kernels of ``kernels.ops`` (one launch for the forward,
+one for STDP). ``"fused"`` is a network-level fusion that ``core.network``
+dispatches to the wave kernel; at layer granularity it is ``"pallas"``,
+which is also the route of a fused network the wave kernel cannot hold.
 
 Also the receptive-field plumbing of the MNIST prototype: 4x4 pixel patches
 x {on, off} = 32 synapses per column, 25x25 = 625 sites over 28x28.
@@ -11,15 +16,21 @@ x {on, off} = 32 synapses per column, 25x25 = 625 sites over 28x28.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.column import (
-    ColumnConfig, body_potential, crossing_time, wta_inhibit,
+    ColumnConfig, body_potential, column_forward_matmul, crossing_time,
+    wta_inhibit,
 )
-from repro_torch.core.stdp import stdp_net_from_uniforms
+from repro_torch.core.stdp import apply_net, stdp_net_from_uniforms
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as _kops
+
+KERNEL_IMPLS = ("pallas", "fused")  # per-layer backends that launch kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,42 +52,44 @@ class LayerConfig:
         return self.n_cols * self.column.p * self.column.q
 
 
-def _require_direct(cfg: LayerConfig) -> None:
-    if cfg.column.impl != "direct":
-        raise ValueError(
-            f"per-layer impl {cfg.column.impl!r} is not ported: the port's "
-            f"per-layer path is 'direct' ('fused' runs whole networks "
-            f"through core.network)")
-
-
-def init_layer(gen: torch.Generator, cfg: LayerConfig, device="cpu") -> torch.Tensor:
+def init_layer(gen: torch.Generator, cfg: LayerConfig, device="cuda") -> torch.Tensor:
     """Uniform-random (n_cols, p, q) int8 weights in [0, w_max], drawn from
-    ``gen`` on its own device and moved to ``device``."""
+    ``gen`` on its own device and moved to ``device`` (the card unless the
+    caller names the CPU)."""
+    dev = resolve_device(device)
     c = cfg.column
     w = torch.randint(0, c.wave.w_max + 1, (cfg.n_cols, c.p, c.q),
                       generator=gen, dtype=torch.int8, device=gen.device)
-    return w.to(device)
+    return w.to(dev)
 
 
 def layer_forward(x: torch.Tensor, w: torch.Tensor, cfg: LayerConfig) -> torch.Tensor:
     """x: (B, n_cols, p) -> post-WTA spike times (B, n_cols, q) uint8."""
-    _require_direct(cfg)
     spec = cfg.column.wave
-    V = body_potential(x.transpose(0, 1), w, spec)  # (C, B, T, q)
-    z = wta_inhibit(crossing_time(V, cfg.column.theta, spec), spec)
-    return z.transpose(0, 1)
+    theta = cfg.column.theta
+    if cfg.column.impl in KERNEL_IMPLS:
+        z = _kops.layer_forward_fused(x, w, theta=theta, T=spec.T)
+        return z.to(SPIKE_DTYPE)
+    xc = x.transpose(0, 1)                                # (C, B, p)
+    if cfg.column.impl == "matmul":
+        z = column_forward_matmul(xc, w, theta, spec)
+    else:
+        z = crossing_time(body_potential(xc, w, spec), theta, spec)
+    return wta_inhibit(z, spec).transpose(0, 1)
 
 
 def layer_uniforms(gen: torch.Generator, cfg: LayerConfig, B: int,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """One wave's STDP uniforms for a whole layer: (n_cols, 2, B, p, q)
     float32 in [0, 1), u[:, 0] = up and u[:, 1] = down, drawn from ``gen``
-    on its own device and moved to ``device``. The bits differ from the
-    reference's threefry draws; tests hand the reference's draws across."""
+    on its own device and moved to ``device`` (the card unless the caller
+    names the CPU). The bits differ from the reference's threefry draws;
+    tests hand the reference's draws across."""
+    dev = resolve_device(device)
     p, q = cfg.column.p, cfg.column.q
     u = torch.rand((cfg.n_cols, 2, B, p, q), generator=gen,
                    dtype=torch.float32, device=gen.device)
-    return u.to(device)
+    return u.to(dev)
 
 
 def layer_stdp_net(
@@ -91,11 +104,57 @@ def layer_stdp_net(
 
     x: (B, C, p) inputs; z: (B, C, q) post-WTA outputs; w: (C, p, q);
     u_up/u_dn: (C, B, p, q). Returns (C, p, q) int32; apply once with
-    :func:`repro_torch.core.stdp.apply_net`."""
-    _require_direct(cfg)
+    :func:`repro_torch.core.stdp.apply_net`. ``"pallas"``/``"fused"`` run
+    the STDP kernel in net mode, the others the plain counter form."""
+    spec, stdp = cfg.column.wave, cfg.column.stdp
+    stdp.require_sum()
+    if cfg.column.impl in KERNEL_IMPLS:
+        return _stdp_kernel(x, z, w, cfg, u_up, u_dn, out="net")
     return stdp_net_from_uniforms(
-        w, x.transpose(0, 1), z.transpose(0, 1), u_up, u_dn,
-        cfg.column.wave, cfg.column.stdp)
+        w, x.transpose(0, 1), z.transpose(0, 1), u_up, u_dn, spec, stdp)
+
+
+def _stdp_kernel(x, z, w, cfg: LayerConfig, u_up, u_dn, *, out: str) -> torch.Tensor:
+    """The layer's STDP through the per-layer kernel (``kernels.ops``)."""
+    spec, stdp = cfg.column.wave, cfg.column.stdp
+    return _kops.layer_stdp_fused(
+        w, x, z, u_up, u_dn, T=spec.T, w_max=spec.w_max,
+        table=stdp.table_tuple(spec), mu_capture=stdp.mu_capture,
+        mu_backoff=stdp.mu_backoff, mu_search=stdp.mu_search, out=out)
+
+
+def layer_step(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cfg: LayerConfig,
+    gen: Optional[torch.Generator] = None,
+    learn: bool = True,
+    *,
+    uniforms: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One gamma wave for the whole layer: x (B, n_cols, p) -> (post-WTA
+    spike times (B, n_cols, q) uint8, new int8 weights).
+
+    Learning takes the layer's (n_cols, 2, B, p, q) STDP uniforms as
+    ``uniforms`` (the tests hand the reference's draws across), or draws
+    them from ``gen`` with :func:`layer_uniforms`. ``"pallas"``/``"fused"``
+    apply the update in the STDP kernel (``out="weights"``); the others
+    apply the plain counters with ``apply_net``. Both are bit-exact with the
+    reference's "sum" update on the same uniforms."""
+    z = layer_forward(x, w, cfg)
+    if not learn:
+        return z, w
+    cfg.column.stdp.require_sum()
+    if uniforms is None:
+        if gen is None:
+            raise ValueError("learning requires gen or uniforms")
+        uniforms = layer_uniforms(gen, cfg, x.shape[0], x.device)
+    u_up, u_dn = uniforms[:, 0], uniforms[:, 1]
+    if cfg.column.impl in KERNEL_IMPLS:
+        w_new = _stdp_kernel(x, z, w, cfg, u_up, u_dn, out="weights")
+        return z, w_new.to(torch.int8)
+    return z, apply_net(w, layer_stdp_net(x, z, w, cfg, u_up, u_dn),
+                        cfg.column.wave)
 
 
 # ---------------------------------------------------------------------------

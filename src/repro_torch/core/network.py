@@ -3,9 +3,11 @@ prototype (625 sites, 32x12 -> 12x10) and N-layer cascades of the same
 column fabric, the image encoder, and the site-vote readout.
 
 ``impl="fused"`` runs the whole cascade as ONE wave-kernel launch per gamma
-wave (``kernels.tnn_wave``); ``impl="direct"`` runs the plain per-layer
-reference. Every other backend of the reference is refused until it is
-ported.
+wave (``kernels.tnn_wave``) when the topology allows it; every other
+network runs layer by layer through ``core.layer``: ``"pallas"`` (and a
+``"fused"`` network the wave kernel cannot hold) on the per-layer kernels,
+``"direct"`` and ``"matmul"`` on the plain column functions. Layers may mix
+backends; all four are bit-exact with each other.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.layer import (
     extract_patches,
     init_layer,
     layer_forward,
-    layer_stdp_net,
+    layer_step,
     layer_uniforms,
 )
 from repro_torch.core.stdp import STDPConfig, apply_net
@@ -30,7 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import padding as _kpad
 from repro_torch.kernels import tnn_wave as _ktw
 
-PORTED_IMPLS = ("direct", "fused")
+PORTED_IMPLS = ColumnConfig.IMPLS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,35 +72,17 @@ def prototype_config(
     return NetworkConfig(layers=(l1, l2))
 
 
-def _check_impls(cfg: NetworkConfig) -> None:
-    impls = {l.column.impl for l in cfg.layers}
-    bad = impls - set(PORTED_IMPLS)
-    if bad:
-        raise ValueError(
-            f"impl {sorted(bad)} is not ported yet; the port runs "
-            f"{PORTED_IMPLS}")
-    if impls == {"fused"} and not _kpad.fused_wave_capable(cfg):
-        l_desc = [(l.n_cols, l.column.p, l.column.q) for l in cfg.layers]
-        raise ValueError(
-            f"impl='fused' needs a fused-wave capable network, and {l_desc} "
-            f"is not (the reference falls back to per-layer 'pallas' "
-            f"kernels, which are not ported yet)")
-    if len(impls) > 1:
-        raise ValueError(f"mixed per-layer impls {sorted(impls)} are not ported")
-
-
 def with_impl(cfg: NetworkConfig, impl: str) -> NetworkConfig:
-    """Rebind every layer's execution backend: ``"direct"`` (plain
-    per-layer reference) or ``"fused"`` (one wave-kernel launch per gamma
-    wave). ``"matmul"``/``"pallas"`` and a ``"fused"`` network the wave
-    kernel cannot hold raise."""
+    """Rebind every layer's execution backend: ``"direct"``, ``"matmul"``,
+    ``"pallas"`` or ``"fused"``. Params and results do not depend on it.
+    ``"fused"`` runs one wave-kernel launch per gamma wave when the topology
+    allows it and per-layer ``"pallas"`` launches otherwise."""
     layers = tuple(
         dataclasses.replace(l, column=dataclasses.replace(l.column, impl=impl))
         for l in cfg.layers
     )
     out = dataclasses.replace(cfg, layers=layers)
     out.validate()
-    _check_impls(out)
     return out
 
 
@@ -159,10 +143,12 @@ def encode_images(images01: torch.Tensor, cfg: NetworkConfig) -> torch.Tensor:
 
 
 def _uses_fused_wave(cfg: NetworkConfig) -> bool:
-    """True when the network runs as one wave-kernel launch per gamma wave;
-    raises for any backend the port does not have."""
-    _check_impls(cfg)
-    return cfg.layers[0].column.impl == "fused"
+    """True when the network runs as one wave-kernel launch per gamma wave:
+    every layer selects ``"fused"`` and the topology is the wave kernel's
+    (``kernels.padding.fused_wave_capable``). Any other network runs layer
+    by layer, each ``"fused"`` layer as a ``"pallas"`` launch."""
+    return (all(l.column.impl == "fused" for l in cfg.layers)
+            and _kpad.fused_wave_capable(cfg))
 
 
 def network_forward(
@@ -215,11 +201,9 @@ def network_train_wave(
                  for w, net, lcfg in zip(params, nets, cfg.layers)])
     outs, new_params = [], []
     for w, lcfg, u in zip(params, cfg.layers, uniforms):
-        z = layer_forward(x, w, lcfg)
-        net = layer_stdp_net(x, z, w, lcfg, u[:, 0], u[:, 1])
-        new_params.append(apply_net(w, net, lcfg.column.wave))
-        outs.append(z)
-        x = z
+        x, w = layer_step(x, w, lcfg, uniforms=u)
+        new_params.append(w)
+        outs.append(x)
     return outs, new_params
 
 

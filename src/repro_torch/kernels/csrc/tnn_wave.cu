@@ -21,7 +21,9 @@
 // (F = table[w], then f32(mu) * F), the pre-clip counter form.
 //
 // The integer ramp sum equals the reference's bf16 A@N product exactly: every
-// operand is a small integer and a ramp never exceeds T-1.
+// operand is a small integer and a ramp never exceeds T-1. The crossing, the
+// stabilize select and the per-pair STDP vote live in tnn_common.cuh, shared
+// with the per-layer kernels tnn_column.cu and stdp_update.cu.
 //
 // Design.
 //  * Grid: one block per site. The TPU kernel walks batch tiles as a
@@ -51,6 +53,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "tnn_common.cuh"
 
 #define TNN_MAX_LAYERS 8
 #define TNN_MAX_THREADS 256
@@ -136,15 +140,7 @@ tnn_wave_kernel(const __grid_constant__ WaveArgs a) {
         uint8_t* vout = vol + v_out;
         int best = (T + 1) * Q;  // larger than any key z * Q + j
         for (int j = 0; j < Q; ++j) {
-          int zj = T;
-          for (int t = 0; t < T; ++t) {
-            int V = 0;
-            for (int i = 0; i < P; ++i) {
-              const int ramp = max(t - (int)vin[i * R + r], 0);
-              V += min(ramp, (int)wl[i * Q + j]);
-            }
-            if (V >= th) { zj = t; break; }
-          }
+          const int zj = tnn_crossing(vin + r, R, wl + j, Q, P, T, th);
           best = min(best, zj * Q + j);
         }
         const int win = best % Q, zwin = best / Q;
@@ -176,21 +172,13 @@ tnn_wave_kernel(const __grid_constant__ WaveArgs a) {
         for (int s = tid; s < PQ; s += nthr) {
           const int i = s / Q, j = s - i * Q;
           const int wv = w_s[w_off + s];
-          // the reference's select chain: a weight outside [1, w_max] reads F[0]
-          const float f = (wv >= 1 && wv <= a.w_max) ? cst[wv] : cst[0];
+          const float f = tnn_stabilize(cst, wv, a.w_max);
           const float pc = mu_c * f, pb = mu_b * f;
           int acc = 0;
           for (int r = 0; r < nrows; ++r) {
-            const int xv = vin[i * R + r], zv = vz[j * R + r];
-            const bool xf = xv < T, zf = zv < T;
-            const bool cap = xf && zf && (xv <= zv);
-            const bool back = (xf && zf && (xv > zv)) || (!xf && zf);
-            const bool sea = xf && !zf;
-            const float p_up = cap ? pc : (sea ? mu_s : 0.0f);
-            const float p_dn = back ? pb : 0.0f;
             const long long b = b0 + r;
-            acc += (int)(uu0[b * a.uu_sb[l] + s] < p_up);
-            acc -= (int)(ud0[b * a.ud_sb[l] + s] < p_dn);
+            acc += tnn_stdp_vote(vin[i * R + r], vz[j * R + r], T, pc, pb, mu_s,
+                                 uu0[b * a.uu_sb[l] + s], ud0[b * a.ud_sb[l] + s]);
           }
           int* ng = a.net[l] + (size_t)c * PQ + s;
           *ng = (b0 == 0) ? acc : *ng + acc;  // only this thread touches it

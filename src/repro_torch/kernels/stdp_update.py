@@ -1,12 +1,42 @@
-"""Plain PyTorch version of the STDP counter body the reference's kernels
-share (``repro.kernels.stdp_update.stdp_net_tile``). The Hopper wave
-kernel's learning epilogue computes the same counters per synapse; the
-per-layer STDP kernel that would call this is not ported yet."""
+"""The per-layer STDP update: one wave of batched-"sum" STDP for every
+synapse of a layer in one launch, as the reference's ``_stdp_kernel``
+(``repro.kernels.stdp_update``) vmapped over the columns by
+``ops.layer_stdp_fused``.
+
+    w (C, p, q) int8, x (B, C, p) and z (B, C, q) spike times,
+    u_up / u_dn (C, B, p, q) float32 uniforms
+    ->  (C, p, q) int32: the pre-clip counters (``out="net"``) or
+        clip(w + net, 0, w_max) (``out="weights"``)
+
+Also the plain PyTorch version of the counter body the reference's kernels
+share (``stdp_net_tile``), with leading batch dims (one per column here).
+
+Dispatch is by the device of ``x``. A CPU tensor runs the plain version
+:func:`stdp_update_layer_plain`. A CUDA tensor launches the hand-written
+Hopper kernel ``csrc/stdp_update.cu`` or raises; nothing falls back.
+``LAUNCHES`` counts the kernel launches.
+"""
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence
 
 import torch
+
+from repro_torch.kernels import _build
+
+MAX_TABLE = 128        # TNN_STDP_MAX_TABLE in csrc/stdp_update.cu (w_max <= 127)
+CHUNK_BYTES = 32_768   # shared memory for one chunk of staged volleys
+MAX_SMEM = _build.MAX_SMEM - 4 * MAX_TABLE  # dynamic, beside the table
+OUTS = ("weights", "net")
+
+LAUNCHES = _build.LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (any device; the wrapper takes them for CPU tensors)
+# ---------------------------------------------------------------------------
 
 
 def stdp_net_tile(
@@ -22,13 +52,14 @@ def stdp_net_tile(
 ) -> torch.Tensor:
     """One batch tile's pre-clip inc - dec counters.
 
-    w (Pt, q); x (Bt, Pt); z (Bt, q); uu/ud (Bt, Pt, q) float32 ->
-    (Pt, q) int32. The stabilize table is a select chain over the weight
-    value, as in the reference (a weight outside [1, w_max] reads entry 0),
-    and the probabilities are float32 ``f32(mu) * F[w]``."""
+    w (..., Pt, q); x (..., Bt, Pt); z (..., Bt, q); uu/ud (..., Bt, Pt, q)
+    float32 -> (..., Pt, q) int32. The stabilize table is a select chain
+    over the weight value, as in the reference (a weight outside
+    [1, w_max] reads entry 0), and the probabilities are float32
+    ``f32(mu) * F[w]``."""
     w = w.to(torch.int32)
-    xs = x.to(torch.int32)[:, :, None]
-    zs = z.to(torch.int32)[:, None, :]
+    xs = x.to(torch.int32)[..., :, :, None]
+    zs = z.to(torch.int32)[..., :, None, :]
     x_fired = xs < T
     z_fired = zs < T
     capture = x_fired & z_fired & (xs <= zs)
@@ -39,11 +70,160 @@ def stdp_net_tile(
     for wv in range(1, w_max + 1):
         f = torch.where(w == wv, torch.tensor(table[wv], dtype=torch.float32,
                                               device=w.device), f)
-    f = f[None]  # (1, Pt, q)
+    f = f.unsqueeze(-3)  # (..., 1, Pt, q)
 
     p_up = capture * (mu_capture * f) + search * torch.tensor(
         mu_search, dtype=torch.float32, device=w.device)
     p_dn = backoff * (mu_backoff * f)
-    inc = (uu < p_up).to(torch.int32).sum(dim=0, dtype=torch.int32)
-    dec = (ud < p_dn).to(torch.int32).sum(dim=0, dtype=torch.int32)
+    inc = (uu < p_up).to(torch.int32).sum(dim=-3, dtype=torch.int32)
+    dec = (ud < p_dn).to(torch.int32).sum(dim=-3, dtype=torch.int32)
     return inc - dec
+
+
+def _check_out(out: str, table: Sequence[float]) -> None:
+    if out not in OUTS:
+        raise ValueError(f"out={out!r}; one of {OUTS}")
+    if not table:
+        raise ValueError("pass the stabilization table explicitly")
+
+
+def stdp_update_layer_plain(
+    w: torch.Tensor, x: torch.Tensor, z: torch.Tensor, u_up: torch.Tensor,
+    u_dn: torch.Tensor, *, T: int, w_max: int, table: Sequence[float],
+    mu_capture: float, mu_backoff: float, mu_search: float, out: str,
+) -> torch.Tensor:
+    """Plain version of :func:`stdp_update_layer`: every column's counters
+    at once through :func:`stdp_net_tile`."""
+    _check_out(out, table)
+    net = stdp_net_tile(w, x.transpose(0, 1), z.transpose(0, 1), u_up, u_dn,
+                        T=T, w_max=w_max, table=table, mu_capture=mu_capture,
+                        mu_backoff=mu_backoff, mu_search=mu_search)
+    if out == "net":
+        return net
+    return (w.to(torch.int32) + net).clamp(0, w_max)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+class _StdpArgs(ctypes.Structure):
+    """``StdpArgs`` of csrc/stdp_update.cu, field for field."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("x", ctypes.c_void_p),
+        ("x_sb", ctypes.c_longlong), ("x_sc", ctypes.c_longlong),
+        ("x_si", ctypes.c_longlong),
+        ("z", ctypes.c_void_p),
+        ("z_sb", ctypes.c_longlong), ("z_sc", ctypes.c_longlong),
+        ("z_sj", ctypes.c_longlong),
+        ("u_up", ctypes.c_void_p),
+        ("uu_sc", ctypes.c_longlong), ("uu_sb", ctypes.c_longlong),
+        ("u_dn", ctypes.c_void_p),
+        ("ud_sc", ctypes.c_longlong), ("ud_sb", ctypes.c_longlong),
+        ("out", ctypes.c_void_p),
+        ("B", ctypes.c_int), ("C", ctypes.c_int), ("p", ctypes.c_int),
+        ("q", ctypes.c_int), ("T", ctypes.c_int), ("w_max", ctypes.c_int),
+        ("rows", ctypes.c_int), ("weights_out", ctypes.c_int),
+        ("mu_c", ctypes.c_float), ("mu_b", ctypes.c_float),
+        ("mu_s", ctypes.c_float),
+        ("table", ctypes.c_float * MAX_TABLE),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("stdp_update")
+    args_p = ctypes.POINTER(_StdpArgs)
+    lib.tnn_stdp_launch.argtypes = [args_p, ctypes.c_void_p]
+    lib.tnn_stdp_launch.restype = ctypes.c_int
+    lib.tnn_stdp_smem_bytes.argtypes = [args_p]
+    lib.tnn_stdp_smem_bytes.restype = ctypes.c_size_t
+    lib.tnn_stdp_error_string.argtypes = [ctypes.c_int]
+    lib.tnn_stdp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build (if needed) and load the kernel library now."""
+    _lib()
+
+
+def _stdp_cuda(w, x, z, u_up, u_dn, *, T, w_max, table, mu_capture,
+               mu_backoff, mu_search, out) -> torch.Tensor:
+    if x.dim() != 3 or z.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"x must be (B, C, p), z (B, C, q) and w (C, p, q), got "
+                         f"{tuple(x.shape)}, {tuple(z.shape)}, {tuple(w.shape)}")
+    B, C, p = x.shape
+    q = z.shape[2]
+    if tuple(z.shape[:2]) != (B, C) or tuple(w.shape) != (C, p, q):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, z {tuple(z.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if not 0 <= w_max < MAX_TABLE or len(table) != w_max + 1:
+        raise ValueError(f"w_max={w_max} with a {len(table)}-entry table; the "
+                         f"kernel takes w_max < {MAX_TABLE} and w_max + 1 entries")
+    for u in (u_up, u_dn):
+        if (u.dtype != torch.float32 or tuple(u.shape) != (C, B, p, q)
+                or u.device != x.device or u.stride(3) != 1
+                or u.stride(2) != q):
+            raise TypeError(
+                f"uniforms must be ({C}, {B}, {p}, {q}) float32 on x's device "
+                f"with contiguous (p, q) planes, got {tuple(u.shape)} {u.dtype} "
+                f"strides {u.stride()}")
+    if w.device != x.device or z.device != x.device:
+        raise ValueError("w, x and z must be on one device")
+    if x.dtype != torch.uint8:  # spike times in [0, T], T <= 254
+        x = x.to(torch.uint8)
+    if z.dtype != torch.uint8:
+        z = z.to(torch.uint8)
+    w = w.to(torch.int8).contiguous()
+    res = torch.empty((C, p, q), dtype=torch.int32, device=x.device)
+    if B == 0:  # no row votes: the counters are 0
+        return res.zero_() if out == "net" else res.copy_(w.clamp(0, w_max))
+    a = _StdpArgs()
+    a.w, a.x, a.z, a.out = w.data_ptr(), x.data_ptr(), z.data_ptr(), res.data_ptr()
+    a.x_sb, a.x_sc, a.x_si = x.stride()
+    a.z_sb, a.z_sc, a.z_sj = z.stride()
+    a.u_up, a.uu_sc, a.uu_sb = u_up.data_ptr(), u_up.stride(0), u_up.stride(1)
+    a.u_dn, a.ud_sc, a.ud_sb = u_dn.data_ptr(), u_dn.stride(0), u_dn.stride(1)
+    a.B, a.C, a.p, a.q, a.T, a.w_max = B, C, p, q, T, w_max
+    a.rows = max(1, min(B, CHUNK_BYTES // (p + q)))
+    a.weights_out = int(out == "weights")
+    a.mu_c, a.mu_b, a.mu_s = mu_capture, mu_backoff, mu_search
+    for k, v in enumerate(table):
+        a.table[k] = v
+    lib = _lib()
+    if lib.tnn_stdp_smem_bytes(ctypes.byref(a)) > MAX_SMEM:
+        raise ValueError(f"p + q = {p + q} is too long for one row's volleys "
+                         f"in {MAX_SMEM} bytes of shared memory")
+    _build.launch("stdp_update", lib.tnn_stdp_launch, lib.tnn_stdp_error_string,
+                  x.device, ctypes.byref(a))
+    LAUNCHES.n += 1
+    return res
+
+
+def stdp_update_layer(
+    w: torch.Tensor, x: torch.Tensor, z: torch.Tensor, u_up: torch.Tensor,
+    u_dn: torch.Tensor, *, T: int, w_max: int, table: Sequence[float],
+    mu_capture: float, mu_backoff: float, mu_search: float,
+    out: str = "weights",
+) -> torch.Tensor:
+    """One wave of STDP for every column of a layer: w (C, p, q), x (B, C, p),
+    z (B, C, q), u_up / u_dn (C, B, p, q) float32 (strided views of a
+    (C, 2, B, p, q) draw are taken as they are) -> (C, p, q) int32, the
+    pre-clip counters (``out="net"``) or the clipped new weights
+    (``out="weights"``). One kernel launch on the card."""
+    _check_out(out, table)
+    if x.device.type == "cpu":
+        return stdp_update_layer_plain(
+            w, x, z, u_up, u_dn, T=T, w_max=w_max, table=table,
+            mu_capture=mu_capture, mu_backoff=mu_backoff, mu_search=mu_search,
+            out=out)
+    if x.device.type != "cuda":
+        raise ValueError(f"stdp_update runs on cpu or cuda tensors, not {x.device}")
+    return _stdp_cuda(w, x, z, u_up, u_dn, T=int(T), w_max=int(w_max),
+                      table=tuple(float(v) for v in table),
+                      mu_capture=float(mu_capture), mu_backoff=float(mu_backoff),
+                      mu_search=float(mu_search), out=out)

@@ -27,11 +27,11 @@ import torch
 from repro_torch.core.column import body_potential, crossing_time, wta_inhibit
 from repro_torch.core.stdp import STDPConfig, stdp_net_from_uniforms
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
+from repro_torch.kernels import _build
 from repro_torch.kernels.padding import NetworkPlan
 
 MAX_LAYERS = 8        # TNN_MAX_LAYERS in csrc/tnn_wave.cu
 MAX_THREADS = 256     # TNN_MAX_THREADS in csrc/tnn_wave.cu
-MAX_SMEM = 232_448    # dynamic shared memory one Hopper block may use
 
 
 @dataclasses.dataclass
@@ -132,8 +132,6 @@ class _WaveArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
-
     lib = _build.load("tnn_wave")
     args_p = ctypes.POINTER(_WaveArgs)
     lib.tnn_wave_launch.argtypes = [args_p, ctypes.c_void_p]
@@ -200,10 +198,10 @@ def _fill_common(x: torch.Tensor, params, plan: NetworkPlan, learn: bool,
     a.threads = threads
     a.rows = min(threads, max(32, -(-B // 32) * 32))
     lib = _lib()
-    while lib.tnn_wave_smem_bytes(ctypes.byref(a)) > MAX_SMEM:
+    while lib.tnn_wave_smem_bytes(ctypes.byref(a)) > _build.MAX_SMEM:
         if a.rows <= 32:
             raise ValueError(
-                f"plan {plan.ps}x{plan.qs} needs more than {MAX_SMEM} bytes "
+                f"plan {plan.ps}x{plan.qs} needs more than {_build.MAX_SMEM} bytes "
                 f"of shared memory per site even at 32 rows per chunk")
         a.rows //= 2
     return a, zs
@@ -211,12 +209,8 @@ def _fill_common(x: torch.Tensor, params, plan: NetworkPlan, learn: bool,
 
 def _launch(a: _WaveArgs, device: torch.device) -> None:
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tnn_wave_launch(ctypes.byref(a), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"tnn_wave launch failed: {lib.tnn_wave_error_string(err).decode()}")
+    _build.launch("tnn_wave", lib.tnn_wave_launch, lib.tnn_wave_error_string,
+                  device, ctypes.byref(a))
 
 
 def _wave_forward_cuda(x, params, plan: NetworkPlan):

@@ -1,13 +1,17 @@
 """TNN-as-a-service launcher: the paper's prototype classified through the
-port's fused wave kernel on the card.
+port's Hopper kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tnn-mnist \
-        --sites 625 --slots 64 --requests 512 --train-waves 4 --impl fused
+        --sites 625 --slots 64 --requests 512 --train-waves 4 --impl pallas
+
+``--impl pallas`` (the default, as in the reference launcher) runs every
+layer through the per-layer column and STDP kernels; ``--impl fused`` runs
+each wave as one wave-kernel launch; ``direct`` and ``matmul`` are the plain
+per-layer forms. All give the same bits.
 
 The sequence is the reference launcher's (``repro.launch.serve``, tnn half):
 random weights from a seed, ``--train-waves`` unsupervised STDP warm-up
-waves on 16 encoded labelled images (the wave kernel's learning half),
-``fit`` on ``digits(max(128, 4 * slots), seed=1)``, then serve
+waves on 16 encoded labelled images, ``fit`` on ``digits(max(128, 4 * slots), seed=1)``, then serve
 ``digits(requests, seed=2)`` through the continuous-batching engine.
 ``--device cpu`` runs the same sequence on the plain PyTorch path; the
 weights and uniforms are drawn on the host, so both devices compute the
@@ -111,9 +115,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--depth", type=int, default=2,
                     help="cascade depth: 2 = the paper prototype, other "
                          "depths build the deep_config N-layer cascade")
-    ap.add_argument("--impl", default="fused", choices=("direct", "fused"),
-                    help="'fused' = one wave-kernel launch per gamma wave; "
-                         "'direct' = the plain per-layer reference")
+    ap.add_argument("--impl", default="pallas",
+                    choices=("direct", "matmul", "pallas", "fused"),
+                    help="'pallas' = the per-layer kernels (one launch per "
+                         "layer); 'fused' = one wave-kernel launch per gamma "
+                         "wave; 'direct'/'matmul' = the plain per-layer forms")
     ap.add_argument("--train-waves", type=int, default=4)
     ap.add_argument("--packed", default=True,
                     action=argparse.BooleanOptionalAction,

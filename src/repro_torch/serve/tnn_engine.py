@@ -1,5 +1,8 @@
 """TNN-as-a-service: the continuous-batching wave pipeline of
-``repro.serve.tnn_engine``, on the port's fused wave kernel.
+``repro.serve.tnn_engine``, on the port's Hopper kernels: by default the
+per-layer kernels (``impl="pallas"``, one column-kernel launch per layer
+per wave), or the whole-network wave kernel (``impl="fused"``, one launch
+per wave).
 
 ``n_slots`` fixed batch rows make one gamma wave; every wave admits up to
 ``n_slots`` queued requests (FIFO), pads a partial wave with the no-op
@@ -107,8 +110,11 @@ class TNNEngine:
             ``network_train_wave`` or ``convert.params_from_numpy``); they
             are moved to ``device``.
         n_slots: images per gamma wave (the fixed batch shape).
-        impl: ``"fused"`` classifies each wave in ONE wave-kernel launch;
-            ``"direct"`` runs the plain per-layer reference.
+        impl: ``"pallas"`` (default, as in the reference) classifies each
+            wave through the per-layer column kernel, one launch per layer;
+            ``"fused"`` in ONE wave-kernel launch; ``"direct"`` and
+            ``"matmul"`` run the plain per-layer forms. All give the same
+            class ids.
         device: ``"cuda"`` (default) or ``"cpu"`` (the plain PyTorch path).
     """
 
@@ -117,7 +123,7 @@ class TNNEngine:
         cfg: NetworkConfig,
         params: Sequence[torch.Tensor],
         n_slots: int = 8,
-        impl: str = "fused",
+        impl: str = "pallas",
         device="cuda",
     ):
         if n_slots < 1:

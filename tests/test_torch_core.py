@@ -189,6 +189,7 @@ def test_column_forward_and_wta(seed, B, p, q, time_bits, theta):
         Vm = j_tnn_column.ramp_matmul(x.astype(jnp.int32), w.astype(jnp.int32), T=T)
         return dict(
             V=V, z=z, fwd=j_column.column_forward(x, w, theta, spec_j),
+            matmul=j_column.column_forward_matmul(x, w, theta, spec_j),
             ref=j_ref.column_forward_ref(x, w, theta, T),
             wta=[j_column.wta_inhibit(zz, spec_j) for zz in (z, ties)],
             wta_ref=[j_ref.wta_ref(zz, T) for zz in (z, ties)],
@@ -204,6 +205,7 @@ def test_column_forward_and_wta(seed, B, p, q, time_bits, theta):
     z_t = t_column.crossing_time(V_t, theta, spec_t)
     _eq(want["z"], z_t)
     _eq(want["fwd"], t_column.column_forward(xt, wt, theta, spec_t))
+    _eq(want["matmul"], t_column.column_forward_matmul(xt, wt, theta, spec_t))
     _eq(want["ref"], t_ref.column_forward_ref(xt, wt, theta, T))
     # WTA on the crossing times and on times full of ties
     for k, zz in enumerate((z_t, torch.from_numpy(ties))):
@@ -221,8 +223,8 @@ def test_init_weights_range_and_generator():
     spec = t_temporal.WaveSpec()
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    w1 = t_column.init_weights(g1, 32, 12, spec)
-    w2 = t_column.init_weights(g2, 32, 12, spec)
+    w1 = t_column.init_weights(g1, 32, 12, spec, device="cpu")
+    w2 = t_column.init_weights(g2, 32, 12, spec, device="cpu")
     assert w1.dtype == torch.int8 and tuple(w1.shape) == (32, 12)
     assert torch.equal(w1, w2)
     assert int(w1.min()) >= 0 and int(w1.max()) <= spec.w_max

@@ -14,6 +14,8 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.configs.tnn_mnist import launcher_network_config
+from repro_torch.core.column import init_weights
+from repro_torch.core.layer import init_layer, layer_uniforms
 from repro_torch.core.network import init_network
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve.tnn_engine import TNNEngine
@@ -55,6 +57,15 @@ def test_defaults_are_cuda_and_raise_without_a_card():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="cuda"):
         init_network(gen, cfg)
+    layer = cfg.layers[0]
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_weights(gen, layer.column.p, layer.column.q, layer.column.wave)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_layer(gen, layer)
+    with pytest.raises(RuntimeError, match="cuda"):
+        layer_uniforms(gen, layer, 2)
+    assert init_layer(gen, layer, device="cpu").device.type == "cpu"
+    assert layer_uniforms(gen, layer, 2, device="cpu").device.type == "cpu"
     params = init_network(gen, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         TNNEngine(cfg, params)

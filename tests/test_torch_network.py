@@ -95,8 +95,8 @@ def _net_case(depth, sites):
 
 def test_network_train_wave_with_reference_draws():
     """One learning wave: the reference draws its own uniforms (per layer,
-    per column); the same draws are handed across, and the port's fused
-    and direct paths both reproduce the reference's outputs and weights."""
+    per column); the same draws are handed across, and each of the port's
+    four backends reproduces the reference's outputs and weights."""
     jcfg, tcfg, params, imgs = _net_case(2, 4)
     B = imgs.shape[0]
     key = jax.random.PRNGKey(7)
@@ -112,7 +112,7 @@ def test_network_train_wave_with_reference_draws():
     zs_j, new_j, us = reference(x_j, tuple(params))
     x_t = t_network.encode_images(torch.from_numpy(imgs), tcfg)
     ut = [torch.from_numpy(np.array(u)) for u in us]
-    for impl in ("fused", "direct"):
+    for impl in ("fused", "direct", "pallas", "matmul"):
         cfg = t_network.with_impl(tcfg, impl)
         pt = convert.params_from_numpy(params, cfg, device="cpu")
         zs_t, new_t = t_network.network_train_wave(x_t, pt, cfg, uniforms=ut)
@@ -155,7 +155,7 @@ def test_forward_vote_table_and_classify(depth, sites):
         j_network.encode_images(jnp.asarray(pool), jcfg), tuple(params))
     rows = np.flatnonzero(~vote_ties(np.asarray(sums_j)))
     assert rows.size >= 24, rows.size
-    for impl in ("fused", "direct"):
+    for impl in ("fused", "direct", "pallas", "matmul"):
         cfg = t_network.with_impl(tcfg, impl)
         pt = convert.params_from_numpy(params, cfg, device="cpu")
         zl_t = t_network.network_forward(
@@ -206,15 +206,21 @@ def test_with_impl_and_configs():
     with pytest.raises(ValueError):
         t_tnn_mnist.image_side(10)
     base = t_tnn_mnist.network_config(16, 12, 3)
-    for impl in ("matmul", "pallas"):
-        with pytest.raises(ValueError, match="not ported"):
-            t_network.with_impl(base, impl)
+    assert t_network.PORTED_IMPLS == j_network.ColumnConfig.IMPLS
+    for impl in ("direct", "matmul", "pallas", "fused"):
+        cfg = t_network.with_impl(base, impl)
+        assert {l.column.impl for l in cfg.layers} == {impl}
+        assert t_network._uses_fused_wave(cfg) == (impl == "fused")
+    with pytest.raises(ValueError, match="unknown impl"):
+        t_network.with_impl(base, "triton")
+    # a fused network the wave kernel cannot hold runs layer by layer on
+    # the per-layer kernels, as the reference's does
     wide = t_network.NetworkConfig(layers=(t_layer.LayerConfig(
         4, t_network.ColumnConfig(p=600, q=12, theta=40)),))
-    with pytest.raises(ValueError, match="fused-wave capable"):
-        t_network.with_impl(wide, "fused")
-    t_network.with_impl(wide, "direct")
-    assert t_network.with_impl(base, "fused").layers[1].column.impl == "fused"
+    fused_wide = t_network.with_impl(wide, "fused")
+    assert fused_wide.layers[0].column.impl == "fused"
+    assert not t_network._uses_fused_wave(fused_wide)
+    assert t_network.with_impl(wide, "direct").layers[0].column.impl == "direct"
 
 
 def test_params_tree_and_convert():

@@ -1,8 +1,10 @@
 """The port's continuous-batching engine against the JAX reference's
-``TNNEngine(impl="fused")``: 16 sites, 8 slots, the same weights (through
-``convert.params_from_numpy``), the same labelled set and requests. The
-vote tables must be equal and every request's class id too, pipelined and
-lock-step, with the same wave/occupancy accounting."""
+``TNNEngine``, on the whole-network wave (``impl="fused"``) and on the
+per-layer kernels (``impl="pallas"``, the default of both engines): 16
+sites, 8 slots, the same weights (through ``convert.params_from_numpy``),
+the same labelled set and requests. The vote tables must be equal and
+every request's class id too, pipelined and lock-step, with the same
+wave/occupancy accounting."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,21 +68,23 @@ def _run(engine, request_cls, images, pipelined):
     return [done[u].result for u in range(len(images))], engine.stats()
 
 
-def _port_engine(params, label_set):
-    cfg = launcher_network_config(SITES, impl="fused")
+def _port_engine(params, label_set, impl="fused"):
+    cfg = launcher_network_config(SITES, impl=impl)
     eng = TNNEngine(cfg, convert.params_from_numpy(params, cfg, device="cpu"),
-                    n_slots=SLOTS, impl="fused", device="cpu")
+                    n_slots=SLOTS, impl=impl, device="cpu")
     eng.fit(*label_set)
     return eng
 
 
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
 @pytest.mark.parametrize("pipelined", [True, False])
-def test_engine_matches_reference(setting, pipelined):
+def test_engine_matches_reference(setting, pipelined, impl):
     params, label_set, requests = setting
-    jeng = JEngine(j_launcher_config(SITES, impl="fused"),
-                   [jnp.asarray(w) for w in params], n_slots=SLOTS, impl="fused")
+    jeng = JEngine(j_launcher_config(SITES, impl=impl),
+                   [jnp.asarray(w) for w in params], n_slots=SLOTS, impl=impl)
     jeng.fit(*label_set)
-    teng = _port_engine(params, label_set)
+    teng = _port_engine(params, label_set, impl)
+    assert teng.cfg.layers[0].column.impl == impl
     np.testing.assert_array_equal(np.asarray(jeng.vote_table),
                                   teng.vote_table.numpy())
     want, st_j = _run(jeng, JRequest, requests, pipelined)
@@ -130,8 +134,9 @@ def test_engine_needs_fit_and_a_known_device(setting):
         eng.poll()
     with pytest.raises(ValueError):
         TNNEngine(cfg, pt, n_slots=SLOTS, device="meta")
-    with pytest.raises(ValueError, match="not ported"):
-        TNNEngine(cfg, pt, n_slots=SLOTS, impl="pallas", device="cpu")
+    assert eng.cfg.layers[0].column.impl == "pallas"  # the reference's default
+    with pytest.raises(ValueError, match="unknown impl"):
+        TNNEngine(cfg, pt, n_slots=SLOTS, impl="triton", device="cpu")
     direct = TNNEngine(cfg, pt, n_slots=SLOTS, impl="direct", device="cpu")
     assert direct.cfg.layers[0].column.impl == "direct"
     assert torch.equal(direct.params[0], pt[0])
