@@ -10,7 +10,9 @@ Phases, each of which fails the run on error:
             per source, all started together.
 3. kernels  hold each kernel against its plain PyTorch version on the card,
             bit for bit (integer outputs, tolerance 0), at the serving
-            paths' shapes and a few more; time kernel and plain version.
+            paths' shapes and a few more (for the column and wave kernels,
+            whose tensor-core tiling depends on T, also other wave specs,
+            odd batches and odd widths); time kernel and plain version.
             The fused wave kernel (tnn_wave), then the per-layer kernels:
             column forward (tnn_column), STDP update (stdp_update) and the
             standalone WTA (wta).
@@ -63,10 +65,14 @@ from repro_torch.kernels.padding import network_plan  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
-# rate outside the tensor cores, used for the kernels' 32-bit integer
-# arithmetic (int32 is not faster, so this keeps the bound a lower bound).
+# H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s;
+# the int8 tensor-core rate, at which the column and wave kernels run the
+# ramp product; and the float32 rate outside the tensor cores, used for the
+# other kernels' 32-bit arithmetic (int32 is not faster). Each operation is
+# priced at the rate of the unit that does it, so the bound stays a lower
+# bound.
 HBM_BYTES_PER_S = 3.35e12
+TENSOR_INT8_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
 
 KERNELS = ("tnn_wave", "tnn_column", "stdp_update", "wta")
@@ -223,23 +229,33 @@ def forward_work(cfg, x, ws, plan):
     return nbytes, ops
 
 
-def bound(nbytes: int, ops: int):
-    """(bound ms, what bounds it, bytes-only ms, operations-only ms)."""
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / SCALAR_OPS_PER_S
+def ops_ms(ramp_ops: float = 0, scalar_ops: float = 0) -> float:
+    """Least ms for the operations: the ramp work (column_ops, counted in
+    the direct form whatever implements it) at the int8 tensor-core rate the
+    column and wave kernels run it at, the rest at the scalar rate."""
+    return 1e3 * (ramp_ops / TENSOR_INT8_OPS_PER_S + scalar_ops / SCALAR_OPS_PER_S)
+
+
+def bound(nbytes: int, t_ops: float):
+    """(bound ms, what bounds it, bytes-only ms) for ``nbytes`` and an
+    operations-only time from :func:`ops_ms`."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            t_bytes, t_ops)
+            t_bytes)
 
 
-def _timing(name, B, kernel_ms, plain_ms, readings, nbytes, ops):
-    bms, by, bytes_ms, ops_ms = bound(nbytes, ops)
+def _timing(name, B, kernel_ms, plain_ms, readings, nbytes, ramp_ops=0,
+            scalar_ops=0):
+    ops, t_ops = ramp_ops + scalar_ops, ops_ms(ramp_ops, scalar_ops)
+    bms, by, bytes_ms = bound(nbytes, t_ops)
     print(f"  {name} B={B}: kernel {readings[1]:.4f}/{readings[2]:.4f} ms on the "
           f"card ({readings[4]:.4f} ms per call by CUDA events), plain "
           f"{readings[0]:.3f}/{readings[3]:.3f} ms, bound {bms:.5f} ms ({by}; "
-          f"{nbytes} bytes = {bytes_ms:.6f} ms, {ops} ops = {ops_ms:.6f} ms)",
+          f"{nbytes} bytes = {bytes_ms:.6f} ms, {ops} ops = {t_ops:.6f} ms)",
           flush=True)
     return dict(B=B, ms=kernel_ms, plain_ms=plain_ms, events_ms=readings[4],
                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                bytes_ms=bytes_ms, ops_ms=ops_ms)
+                bytes_ms=bytes_ms, ops_ms=t_ops)
 
 
 def measure(cfg, dev):
@@ -257,13 +273,15 @@ def measure(cfg, dev):
             k = lambda: tnn_wave.wave_train(x, ws, pairs, plan=plan)  # noqa: E731
             p = lambda: tnn_wave.wave_train_plain(x, ws, pairs, plan=plan)  # noqa: E731
         ms, plain_ms, readings = in_turns(k, p, iters)
-        nbytes, ops = forward_work(cfg, x, ws, plan)
+        nbytes, ramp_ops = forward_work(cfg, x, ws, plan)
+        scalar_ops = 0
         if half == "learn":
             pq = sum(p_ * q_ for p_, q_ in zip(plan.ps, plan.qs))
             C = plan.n_cols
             nbytes += 8 * C * B * pq + 4 * C * pq  # uniforms in, nets out
-            ops += 2 * C * B * pq                  # the two Bernoulli compares
-        out[half] = _timing(half, B, ms, plain_ms, readings, nbytes, ops)
+            scalar_ops = 2 * C * B * pq            # the two Bernoulli compares
+        out[half] = _timing(half, B, ms, plain_ms, readings, nbytes, ramp_ops,
+                            scalar_ops)
     return out
 
 
@@ -281,25 +299,57 @@ def caps_config(C: int) -> NetworkConfig:
 # ---------------------------------------------------------------------------
 
 
-def _spikes(g, shape, dev):
-    return torch.randint(0, T + 1, shape, generator=g, dtype=torch.uint8).to(dev)
+def _spikes(g, shape, dev, T_=T):
+    return torch.randint(0, T_ + 1, shape, generator=g, dtype=torch.uint8).to(dev)
 
 
-def _weights(g, shape, dev):
-    return torch.randint(0, W_MAX + 1, shape, generator=g, dtype=torch.int8).to(dev)
+def _weights(g, shape, dev, w_max=W_MAX):
+    return torch.randint(0, w_max + 1, shape, generator=g, dtype=torch.int8).to(dev)
 
 
-def check_column(name, x, w, theta, wta_on=True):
+def check_column(name, x, w, theta, wta_on=True, T_=T):
     """Column kernel vs plain on the card; returns (err, z as uint8)."""
-    zk = tnn_column.column_forward_layer(x, w, theta=theta, T=T, wta=wta_on)
-    zp = tnn_column.column_forward_layer_plain(x, w, theta=theta, T=T, wta=wta_on)
+    zk = tnn_column.column_forward_layer(x, w, theta=theta, T=T_, wta=wta_on)
+    zp = tnn_column.column_forward_layer_plain(x, w, theta=theta, T=T_, wta=wta_on)
     torch.cuda.synchronize()
     err = _max_err(zk, zp)
     if zk.dtype != torch.int32:
         raise AssertionError(f"{name}: z is {zk.dtype}, not int32")
-    print(f"  column {name}: x {tuple(x.shape)} w {tuple(w.shape)} theta={theta} "
-          f"wta={wta_on} spikes={int((zk < T).sum())} max_abs_err={err}", flush=True)
+    print(f"  column {name}: x {tuple(x.shape)} w {tuple(w.shape)} T={T_} "
+          f"theta={theta} wta={wta_on} spikes={int((zk < T_).sum())} "
+          f"max_abs_err={err}", flush=True)
     return _require_exact(f"column {name}", err), zk.to(SPIKE_DTYPE)
+
+
+# (time_bits, weight_bits) beside the paper's (3, 3): the tensor-core tiling
+# depends on T (16/T rows per m16 tile, or T/16 tiles per row) and on the
+# ramp steps per synapse (T - 1 rounded up to 4)
+OTHER_SPECS = ((1, 1), (4, 2), (7, 7))
+
+
+def spec_theta(p: int, T_: int, w_max: int) -> int:
+    """A layer-1 threshold at which some neurons cross and some do not."""
+    return max(1, p * min(T_ - 1, w_max) // 8)
+
+
+def odd_config(C: int) -> NetworkConfig:
+    """32x11 -> 11x9 at T = 8: a layer-2 fan-in off the multiple of 4 the
+    tensor-core body's T = 8 form takes, and uniform planes (11*9 floats)
+    that are not 16-byte multiples, so the learning half stages them 4 bytes
+    at a time."""
+    wave = WaveSpec()
+    l1 = LayerConfig(C, ColumnConfig(p=32, q=11, theta=12, wave=wave, impl="fused"))
+    l2 = LayerConfig(C, ColumnConfig(p=11, q=9, theta=2, wave=wave, impl="fused"))
+    return NetworkConfig(layers=(l1, l2))
+
+
+def spec_config(time_bits: int, weight_bits: int, C: int) -> NetworkConfig:
+    """The prototype's 32x12 -> 12x10 topology at another wave spec."""
+    wave = WaveSpec(time_bits=time_bits, weight_bits=weight_bits)
+    th1 = spec_theta(32, wave.T, wave.w_max)
+    l1 = LayerConfig(C, ColumnConfig(p=32, q=12, theta=th1, wave=wave, impl="fused"))
+    l2 = LayerConfig(C, ColumnConfig(p=12, q=10, theta=1, wave=wave, impl="fused"))
+    return NetworkConfig(layers=(l1, l2))
 
 
 def check_columns(dev):
@@ -320,6 +370,23 @@ def check_columns(dev):
     e, _ = check_column("full layer 1 no WTA", _spikes(g, (64, 625, 32), dev), w1, 12,
                         wta_on=False)
     err = max(err, e)
+    # an odd batch: the last m16 tile holds one live row of two
+    e, z1 = check_column("full layer 1 B=7", _spikes(g, (7, 625, 32), dev), w1, 12)
+    err = max(err, e)
+    e, _ = check_column("full layer 2 B=7", z1, _weights(g, (625, 12, 10), dev), 3)
+    err = max(err, e)
+    for tb, wb in OTHER_SPECS:
+        T_, w_max = 1 << tb, (1 << wb) - 1
+        for B in (5, 64):
+            x = _spikes(g, (B, 24, 32), dev, T_)
+            e, z1 = check_column(f"24 sites layer 1 (time_bits, weight_bits)=({tb},{wb}) "
+                                 f"B={B}", x, _weights(g, (24, 32, 12), dev, w_max),
+                                 spec_theta(32, T_, w_max), T_=T_)
+            err = max(err, e)
+            e, _ = check_column(f"24 sites layer 2 ({tb},{wb}) B={B} no WTA", z1,
+                                _weights(g, (24, 12, 10), dev, w_max), 1,
+                                wta_on=False, T_=T_)
+            err = max(err, e)
     for label, (C, B, p, q, theta) in (
             ("one column p=1024 q=16", (1, 64, 1024, 16, 600)),
             ("q=128", (132, 40, 32, 128, 24)),
@@ -415,7 +482,7 @@ def measure_layer_kernels(dev):
         ms, plain_ms, readings = in_turns(k, p, 200)
         nbytes = xl.numel() + wl.numel() + 4 * xl.shape[0] * wl.shape[0] * wl.shape[2]
         per.append(_timing(f"column layer {l}", 64, ms, plain_ms, readings, nbytes,
-                           column_ops(xl, wl, th)))
+                           ramp_ops=column_ops(xl, wl, th)))
     out["tnn_column"] = _mean_timing(per)
     # STDP update
     per = []
@@ -430,7 +497,7 @@ def measure_layer_kernels(dev):
         # Bernoulli compares per (row, synapse)
         nbytes = C * pp * q + B * C * pp + B * C * q + 8 * C * B * pp * q + 4 * C * pp * q
         per.append(_timing(f"stdp layer {l}", B, ms, plain_ms, readings, nbytes,
-                           2 * C * B * pp * q))
+                           scalar_ops=2 * C * B * pp * q))
     out["stdp_update"] = _mean_timing(per)
     # WTA
     z = torch.randint(0, T + 1, (64 * 625, 12), generator=g, dtype=torch.int32).to(dev)
@@ -438,7 +505,7 @@ def measure_layer_kernels(dev):
                                       lambda: wta.wta_plain(z, T=T), 200)
     # z in and out as int32; key, running min and select per element
     out["wta"] = _timing("wta (64*625, 12)", z.shape[0], ms, plain_ms, readings,
-                         8 * z.numel(), 3 * z.numel())
+                         8 * z.numel(), scalar_ops=3 * z.numel())
     return out
 
 
@@ -446,12 +513,13 @@ def _mean_timing(per):
     """One launch's numbers, averaged over equally frequent launches."""
     n = len(per)
     nbytes, ops = sum(t["bytes"] for t in per) / n, sum(t["ops"] for t in per) / n
-    bms, by, bytes_ms, ops_ms = bound(nbytes, ops)
+    t_ops = sum(t["ops_ms"] for t in per) / n
+    bms, by, bytes_ms = bound(nbytes, t_ops)
     return dict(B=per[0]["B"], ms=sum(t["ms"] for t in per) / n,
                 plain_ms=sum(t["plain_ms"] for t in per) / n,
                 events_ms=sum(t["events_ms"] for t in per) / n, bound_ms=bms,
                 bound_by=by, bytes=nbytes, ops=ops, bytes_ms=bytes_ms,
-                ops_ms=ops_ms, per_layer=per)
+                ops_ms=t_ops, per_layer=per)
 
 
 # ---------------------------------------------------------------------------
@@ -638,8 +706,14 @@ def main() -> int:
             ("full multi-chunk", full_lo, 300, 6),
             ("deep depth-3", deep, 64, 7),
             ("deep depth-3 learn", deep, 16, 8),
-            ("caps p1=512 q=128", caps_config(132), 40, 9)):
+            ("caps p1=512 q=128", caps_config(132), 40, 9),
+            ("full odd B=7", full_lo, 7, 10),
+            ("odd widths 32x11 -> 11x9", odd_config(48), 37, 11)):
         err = max(err, check_case(name, cfg, B, seed, dev))
+    for k, (tb, wb) in enumerate(OTHER_SPECS):
+        for B in (5, 64):
+            err = max(err, check_case(f"24 sites (time_bits, weight_bits)=({tb},{wb})",
+                                      spec_config(tb, wb, 24), B, 20 + 2 * k + (B > 5), dev))
     errs["tnn_wave"] = err
     timing = measure(full_hi, dev)
 

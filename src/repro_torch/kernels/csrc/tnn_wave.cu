@@ -10,7 +10,7 @@
 // src/repro_torch/kernels/tnn_wave.py, which also holds the ctypes wrapper.
 //
 // What it computes, per site c and batch row b, layer by layer:
-//   V[t, j] = sum_i min(max(t - x_i, 0), w_ij)     (int32, t in [0, T))
+//   V[t, j] = sum_{i,k} [x_i + k <= t] * [k <= w_ij]   (t in [0, T))
 //   z_j     = first t with V[t, j] >= theta, else T
 //   1-WTA   = keep the minimum of the key z_j * q + j (earliest spike, ties to
 //             the lowest index); every other neuron gets T
@@ -20,36 +20,48 @@
 // with p_up/p_dn built in float32 exactly as stdp_net_tile builds them
 // (F = table[w], then f32(mu) * F), the pre-clip counter form.
 //
-// The integer ramp sum equals the reference's bf16 A@N product exactly: every
-// operand is a small integer and a ramp never exceeds T-1. The crossing, the
-// stabilize select and the per-pair STDP vote live in tnn_common.cuh, shared
-// with the per-layer kernels tnn_column.cu and stdp_update.cu.
+// V is the reference's A@N 0/1 product on int8 tensor cores, the body shared
+// with tnn_column.cu (tnn_common.cuh, bit for bit the reference's bf16/f32
+// product); so are the WTA, the stabilize select and the per-pair STDP vote.
+//
+// Bound on this card (H100 SXM, 3.35 TB/s):
+//  * serving: x, w and z are about 2.5 MB at B = 64; chip_smoke.py's count of
+//    the direct ramp form's integer work (239 M ops, 3.6 us at 67 T op/s)
+//    bounds it. The first port gave each batch row one thread walking every
+//    neuron, tick and synapse serially (about 3,000 dependent steps, 9.5
+//    warps per SM); here every warp of the block takes part in every layer.
+//  * learning: the uniforms dominate the bytes, 8 * C * B * sum_l(p_l q_l)
+//    (about 40 MB at C = 625, B = 16, 12.7 us), so it is bound by bytes. The
+//    first port read them only after the forward, in a loop of dependent
+//    loads; here they are in flight while the forward runs.
 //
 // Design.
-//  * Grid: one block per site. The TPU kernel walks batch tiles as a
-//    sequential grid axis and carries the counters in scratch; here a loop
-//    inside the block walks chunks of `rows` batch rows, and the block that
-//    owns site c is the only writer of net[c], so the counters need no atomics
-//    and their sums are deterministic. A ragged batch is masked in the loop.
+//  * Grid: (site, batch chunk). The TPU kernel walks batch tiles as a
+//    sequential grid axis and carries the counters in scratch. Forward: one
+//    block per chunk of `rows` rows. Learning: one block per site walks the
+//    chunks itself, the only writer of net[c], so the counters need no
+//    atomics and their sums are deterministic.
 //  * x is read and z written in the public (B, C, .) layout through strides:
 //    no transposes or padding around the launch.
-//  * Shared memory holds the site's weights of every layer (int8) and the
-//    chunk's volleys of every layer, stored [neuron][row] so that neighbouring
-//    threads (rows) touch neighbouring bytes.
-//  * Forward: one thread carries one batch row through the whole cascade; the
-//    weight reads are the same address for every thread (a broadcast).
-//  * Learn epilogue: threads switch to one thread per synapse; each loops over
-//    the chunk's rows and reads u_up/u_dn[c, b, i, j], so a warp reads 32
-//    consecutive floats of one row (coalesced).
-//
-// Bound on this card (H100 SXM, 3.35 TB/s, 80 GB):
-//  * learning: the uniforms dominate the bytes, 8 * C * B * sum_i(p_i q_i)
-//    bytes per wave (about 40 MB at the prototype's C=625, B=16), so the
-//    epilogue is memory-bound; the design reads each uniform exactly once,
-//    coalesced, and keeps everything else (weights, volleys) on chip.
-//  * serving: x, w and z are about 2.5 MB at B=64, so the forward is bound by
-//    its integer work and, at this size, by launch latency: one launch per
-//    wave whatever the depth is what the design does about it.
+//  * Shared memory holds the site's weights of every layer (int8), the
+//    chunk's volleys of every layer ([row][synapse] bytes), one layer's
+//    pre-WTA crossing times (int32) and, when learning, the chunk's uniform
+//    planes.
+//  * Forward, per layer: every warp runs its m16 tiles of the layer's A@N
+//    product and writes the layer's post-WTA z to shared memory (the next
+//    layer's input) and to device memory; a __syncthreads separates the
+//    layers, so z never leaves the chip between them and the cascade is one
+//    launch. The prototype's layers (T = 8) take tnn_layer_t8, which does
+//    the WTA inside the warp; other shapes take tnn_layer_crossings and a
+//    block-wide WTA through shared memory.
+//  * Learning: at the start of each chunk every thread issues cp.async copies
+//    of the chunk's u_up/u_dn planes of every layer into shared memory (16
+//    bytes at a time where the planes are 16-byte aligned); the forward runs
+//    while they land. The epilogue then takes one thread per synapse (the
+//    synapses of all layers dealt out as one list), reads the uniforms from
+//    shared memory and sums its rows' votes. Where one
+//    chunk's uniforms cannot fit (more than about 220 KB per row beside the
+//    rest), the epilogue reads them from device memory, coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,33 +87,87 @@ struct WaveArgs {
   long long ud_sc[TNN_MAX_LAYERS], ud_sb[TNN_MAX_LAYERS];
   int* net[TNN_MAX_LAYERS];               // (C, p, q) contiguous int32
   const float* consts;                    // (n_layers, w_max + 4): table, mu_c, mu_b, mu_s
+  int u_stage;                            // 1: copy each chunk's uniforms to shared memory
 };
 
 }  // extern "C"
 
-__host__ __device__ static inline int weights_bytes(const WaveArgs& a) {
+__host__ __device__ static inline int r16(int n) { return (n + 15) & ~15; }
+__host__ __device__ static inline int r4(int n) { return (n + 3) & ~3; }
+
+// Float offset of layer l's staged uniforms: [up rows][down rows] per layer.
+__host__ __device__ static inline int ustage_floats(const WaveArgs& a, int l) {
   int n = 0;
-  for (int l = 0; l < a.n_layers; ++l) n += a.p[l] * a.q[l];
-  return (n + 15) & ~15;
+  for (int k = 0; k < l; ++k) n += r4(2 * a.rows * a.p[k] * a.q[k]);
+  return n;
 }
 
-__host__ __device__ static inline int volley_bytes(const WaveArgs& a) {
-  int n = a.p[0];
-  for (int l = 0; l < a.n_layers; ++l) n += a.q[l];
-  return n * a.rows;
+struct WaveSmem {
+  size_t ust, zpre, best, w, vol, total;
+};
+
+__host__ __device__ static inline WaveSmem wave_smem(const WaveArgs& a) {
+  int wq = 0, qmax = 0, vq = a.p[0];
+  for (int l = 0; l < a.n_layers; ++l) {
+    wq += a.p[l] * a.q[l];
+    vq += a.q[l];
+    qmax = a.q[l] > qmax ? a.q[l] : qmax;
+  }
+  WaveSmem s;
+  s.ust = 0;
+  s.zpre = (a.learn && a.u_stage) ? (size_t)4 * ustage_floats(a, a.n_layers) : 0;
+  s.best = s.zpre + (size_t)4 * a.rows * qmax;
+  s.w = s.best + (size_t)4 * a.rows;
+  s.vol = s.w + r16(wq);
+  s.total = s.vol + r16(vq * a.rows);
+  return s;
 }
 
-__global__ void __launch_bounds__(TNN_MAX_THREADS)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// Copy nrows planes of PQ floats, plane r at src + r * sb, to dst + r * PQ.
+__device__ __forceinline__ void stage_planes(float* dst, const float* src,
+                                             long long sb, int PQ, int nrows,
+                                             int tid, int nthr) {
+  if ((((uintptr_t)src) & 15) == 0 && (sb & 3) == 0 && (PQ & 3) == 0) {
+    const int n4 = PQ >> 2;
+    for (int k = tid; k < nrows * n4; k += nthr) {
+      const int r = k / n4, e = (k - r * n4) << 2;
+      cp_async16(dst + r * PQ + e, src + r * sb + e);
+    }
+  } else {
+    for (int k = tid; k < nrows * PQ; k += nthr) {
+      const int r = k / PQ, e = k - r * PQ;
+      cp_async4(dst + r * PQ + e, src + r * sb + e);
+    }
+  }
+}
+
+// FAST: every layer takes tnn_layer_t8 (the prototype's layers), so only
+// that body is compiled in; else every layer takes tnn_layer_crossings.
+template <bool FAST>
+__global__ void __launch_bounds__(TNN_MAX_THREADS, FAST ? 3 : 1)
 tnn_wave_kernel(const __grid_constant__ WaveArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int R = a.rows;
-  const int L = a.n_layers;
-  const int T = a.T;
-  int8_t* w_s = reinterpret_cast<int8_t*>(smem);
-  uint8_t* vol = smem + weights_bytes(a);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, nwarps = nthr >> 5;
+  const int R = a.rows, L = a.n_layers, T = a.T;
+  const bool stage = a.learn && a.u_stage;
+  const WaveSmem sm = wave_smem(a);
+  float* ust = reinterpret_cast<float*>(smem + sm.ust);
+  int* zpre = reinterpret_cast<int*>(smem + sm.zpre);
+  int* best = reinterpret_cast<int*>(smem + sm.best);
+  int8_t* w_s = reinterpret_cast<int8_t*>(smem + sm.w);
+  uint8_t* vol = smem + sm.vol;
 
   // The site's weights of every layer, loaded once.
   {
@@ -114,80 +180,116 @@ tnn_wave_kernel(const __grid_constant__ WaveArgs a) {
     }
   }
 
-  for (int b0 = 0; b0 < a.B; b0 += R) {
+  const int n_chunks = (a.B + R - 1) / R;
+  for (int ch = blockIdx.y; ch < n_chunks; ch += gridDim.y) {
+    const int b0 = ch * R;
     const int nrows = min(R, a.B - b0);
 
-    // Stage the chunk's input volley as [i][row].
+    // The chunk's uniforms, in flight during the forward.
+    if (stage) {
+      for (int l = 0; l < L; ++l) {
+        const int PQ = a.p[l] * a.q[l];
+        float* dst = ust + ustage_floats(a, l);
+        stage_planes(dst, a.u_up[l] + c * a.uu_sc[l] + b0 * a.uu_sb[l],
+                     a.uu_sb[l], PQ, nrows, tid, nthr);
+        stage_planes(dst + R * PQ, a.u_dn[l] + c * a.ud_sc[l] + b0 * a.ud_sb[l],
+                     a.ud_sb[l], PQ, nrows, tid, nthr);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+
+    // Stage the chunk's input volley as [row][synapse].
     {
       const int P0 = a.p[0];
+      const uint8_t* xg = a.x + (long long)b0 * a.x_sb + (long long)c * a.x_sc;
       for (int k = tid; k < nrows * P0; k += nthr) {
         const int r = k / P0, i = k - r * P0;
-        vol[i * R + r] = a.x[(long long)(b0 + r) * a.x_sb +
-                             (long long)c * a.x_sc + (long long)i * a.x_si];
+        vol[k] = xg[(long long)r * a.x_sb + (long long)i * a.x_si];
       }
     }
     __syncthreads();
 
-    // Forward cascade: one thread per batch row.
-    if (tid < nrows) {
-      const int r = tid;
-      const long long b = b0 + r;
+    // Forward cascade: every warp in every layer.
+    {
       int w_off = 0, v_in = 0, v_out = a.p[0] * R;
       for (int l = 0; l < L; ++l) {
-        const int P = a.p[l], Q = a.q[l], th = a.theta[l];
+        const int P = a.p[l], Q = a.q[l];
         const int8_t* wl = w_s + w_off;
-        const uint8_t* vin = vol + v_in;
         uint8_t* vout = vol + v_out;
-        int best = (T + 1) * Q;  // larger than any key z * Q + j
-        for (int j = 0; j < Q; ++j) {
-          const int zj = tnn_crossing(vin + r, R, wl + j, Q, P, T, th);
-          best = min(best, zj * Q + j);
+        uint8_t* zg = a.z[l] + ((long long)b0 * a.C + c) * Q;
+        const long long zrs = (long long)a.C * Q;
+        if constexpr (FAST) {
+          tnn_layer_t8(vol + v_in, P, R, nrows, wl, P, Q, a.theta[l], true, warp,
+                       nwarps, [&](int r, int j, int z) {
+                         vout[r * Q + j] = (uint8_t)z;
+                         zg[r * zrs + j] = (uint8_t)z;
+                       });
+        } else {
+          tnn_layer_crossings(vol + v_in, P, R, nrows, wl, P, Q, T, a.theta[l],
+                              zpre, warp, nwarps);
+          __syncthreads();
+          tnn_row_best(zpre, nrows, Q, best, tid, nthr);
+          __syncthreads();
+          for (int k = tid; k < nrows * Q; k += nthr) {
+            const int r = k / Q, j = k - r * Q;
+            const uint8_t out = (uint8_t)tnn_wta_keep(zpre[k], j, Q, T, best[r]);
+            vout[k] = out;
+            zg[r * zrs + j] = out;
+          }
         }
-        const int win = best % Q, zwin = best / Q;
-        uint8_t* zg = a.z[l] + (b * a.C + c) * (long long)Q;
-        for (int j = 0; j < Q; ++j) {
-          const uint8_t out = (uint8_t)((j == win && zwin < T) ? zwin : T);
-          vout[j * R + r] = out;
-          zg[j] = out;
-        }
+        __syncthreads();
         w_off += P * Q;
         v_in = v_out;
         v_out += Q * R;
       }
     }
-    __syncthreads();
 
-    // STDP-counter epilogue: one thread per synapse, loop over the rows.
+    // STDP-counter epilogue: one thread per synapse, the synapses of every
+    // layer dealt out as one list; each loops over the chunk's rows.
     if (a.learn) {
-      int w_off = 0, v_in = 0, v_out = a.p[0] * R;
-      for (int l = 0; l < L; ++l) {
+      if (stage) {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();
+      }
+      int n_syn = 0;
+      for (int l = 0; l < L; ++l) n_syn += a.p[l] * a.q[l];
+      for (int task = tid; task < n_syn; task += nthr) {
+        int l = 0, s = task, w_off = 0, v_in = 0, v_out = a.p[0] * R;
+        while (s >= a.p[l] * a.q[l]) {
+          s -= a.p[l] * a.q[l];
+          w_off += a.p[l] * a.q[l];
+          v_in = v_out;
+          v_out += a.q[l] * R;
+          ++l;
+        }
         const int P = a.p[l], Q = a.q[l], PQ = P * Q;
         const float* cst = a.consts + l * (a.w_max + 4);
         const float mu_c = cst[a.w_max + 1], mu_b = cst[a.w_max + 2],
                     mu_s = cst[a.w_max + 3];
         const uint8_t* vin = vol + v_in;
         const uint8_t* vz = vol + v_out;
-        const float* uu0 = a.u_up[l] + (long long)c * a.uu_sc[l];
-        const float* ud0 = a.u_dn[l] + (long long)c * a.ud_sc[l];
-        for (int s = tid; s < PQ; s += nthr) {
-          const int i = s / Q, j = s - i * Q;
-          const int wv = w_s[w_off + s];
-          const float f = tnn_stabilize(cst, wv, a.w_max);
-          const float pc = mu_c * f, pb = mu_b * f;
-          int acc = 0;
-          for (int r = 0; r < nrows; ++r) {
-            const long long b = b0 + r;
-            acc += tnn_stdp_vote(vin[i * R + r], vz[j * R + r], T, pc, pb, mu_s,
-                                 uu0[b * a.uu_sb[l] + s], ud0[b * a.ud_sb[l] + s]);
-          }
-          int* ng = a.net[l] + (size_t)c * PQ + s;
-          *ng = (b0 == 0) ? acc : *ng + acc;  // only this thread touches it
+        const int i = s / Q, j = s - i * Q;
+        const int wv = w_s[w_off + s];
+        const float f = tnn_stabilize(cst, wv, a.w_max);
+        const float pc = mu_c * f, pb = mu_b * f;
+        int acc = 0;
+        if (stage) {
+          const float* su = ust + ustage_floats(a, l) + s;
+#pragma unroll 4
+          for (int r = 0; r < nrows; ++r)
+            acc += tnn_stdp_vote(vin[r * P + i], vz[r * Q + j], T, pc, pb, mu_s,
+                                 su[r * PQ], su[(R + r) * PQ]);
+        } else {
+          const float* gu = a.u_up[l] + c * a.uu_sc[l] + b0 * a.uu_sb[l] + s;
+          const float* gd = a.u_dn[l] + c * a.ud_sc[l] + b0 * a.ud_sb[l] + s;
+          for (int r = 0; r < nrows; ++r)
+            acc += tnn_stdp_vote(vin[r * P + i], vz[r * Q + j], T, pc, pb, mu_s,
+                                 gu[r * a.uu_sb[l]], gd[r * a.ud_sb[l]]);
         }
-        w_off += PQ;
-        v_in = v_out;
-        v_out += Q * R;
+        int* ng = a.net[l] + (size_t)c * PQ + s;
+        *ng = (b0 == 0) ? acc : *ng + acc;  // only this thread touches it
       }
-      __syncthreads();  // the next chunk overwrites the volleys
+      __syncthreads();  // the next chunk overwrites volleys and uniforms
     }
   }
 }
@@ -195,22 +297,28 @@ tnn_wave_kernel(const __grid_constant__ WaveArgs a) {
 extern "C" {
 
 // Dynamic shared memory one launch with these arguments needs.
-size_t tnn_wave_smem_bytes(const WaveArgs* a) {
-  return (size_t)weights_bytes(*a) + (size_t)volley_bytes(*a);
-}
+size_t tnn_wave_smem_bytes(const WaveArgs* a) { return wave_smem(*a).total; }
 
 // Enqueue one wave on `stream`; returns cudaGetLastError() (0 = launched).
 int tnn_wave_launch(const WaveArgs* a, void* stream) {
-  if (a->n_layers < 1 || a->n_layers > TNN_MAX_LAYERS ||
-      a->threads < 1 || a->threads > TNN_MAX_THREADS || a->rows > a->threads)
+  const int T = a->T;
+  const int tile_rows = T >= 16 ? 1 : 16 / (T > 0 ? T : 1);
+  if (a->n_layers < 1 || a->n_layers > TNN_MAX_LAYERS || a->threads < 32 ||
+      a->threads > TNN_MAX_THREADS || a->threads % 32 != 0 || a->rows < 1 ||
+      a->rows % tile_rows != 0 || T < 2 || T > 128 || (T & (T - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tnn_wave_smem_bytes(a);
+  bool fast = true;
+  for (int l = 0; l < a->n_layers; ++l) fast = fast && tnn_t8_shape(a->p[l], a->q[l], T);
+  auto kernel = fast ? tnn_wave_kernel<true> : tnn_wave_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tnn_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  tnn_wave_kernel<<<a->C, a->threads, smem, (cudaStream_t)stream>>>(*a);
+  const int n_chunks = (a->B + a->rows - 1) / a->rows;
+  const int gy = a->learn ? 1 : (n_chunks < 65535 ? n_chunks : 65535);
+  kernel<<<dim3(a->C, gy), a->threads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -15,9 +15,9 @@ is the same exact integer count.
 
 Dispatch is by the device of ``x``. A CPU tensor runs the plain version
 :func:`column_forward_layer_plain` (built from those two bodies). A CUDA
-tensor launches the hand-written Hopper kernel ``csrc/tnn_column.cu`` (a
-direct integer ramp sum, exactly equal) or raises; nothing falls back.
-``LAUNCHES`` counts the kernel launches.
+tensor launches the hand-written Hopper kernel ``csrc/tnn_column.cu`` (the
+same A@N product on int8 tensor cores, exactly equal) or raises; nothing
+falls back. ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from repro_torch.kernels import _build
 
 MAX_Q = 128            # the reference keeps q un-tiled in 128 lanes
 MAX_THREADS = 256      # TNN_COLUMN_MAX_THREADS in csrc/tnn_column.cu
+CHUNK_TILES = 32       # m16 tiles of (row, tick) pairs per block, at most
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -71,6 +72,10 @@ def crossing_wta(V: torch.Tensor, *, T: int, theta: int, wta: bool) -> torch.Ten
         winner = key.amin(dim=-1, keepdim=True)
         z = torch.where((key == winner) & (z < T), z, T)
     return z.to(torch.int32)
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def column_forward_layer_plain(x: torch.Tensor, w: torch.Tensor, *, theta: int,
@@ -121,6 +126,25 @@ def build() -> None:
     _lib()
 
 
+def tile_rows(T: int) -> int:
+    """Batch rows one m16 tile of (row, tick) pairs holds (1 when a row
+    spans several tiles)."""
+    return max(1, 16 // T)
+
+
+def chunk_rows(B: int, T: int) -> int:
+    """Rows per block: at most CHUNK_TILES m16 tiles, the batch split into
+    equal chunks (no nearly empty one), each a whole number of tiles."""
+    tile = tile_rows(T)
+    chunks = -(-B // max(tile, CHUNK_TILES * 16 // T))
+    return _ceil_to(-(-B // chunks), tile)
+
+
+def halve_rows(rows: int, T: int) -> int:
+    """The next smaller chunk when one does not fit shared memory."""
+    return max(tile_rows(T), _ceil_to(rows // 2, tile_rows(T)))
+
+
 def _column_cuda(x: torch.Tensor, w: torch.Tensor, theta: int, T: int,
                  wta: bool) -> torch.Tensor:
     if x.dim() != 3 or w.dim() != 3:
@@ -133,9 +157,12 @@ def _column_cuda(x: torch.Tensor, w: torch.Tensor, theta: int, T: int,
     if q > MAX_Q:
         raise ValueError(f"q={q} > {MAX_Q}: the column kernel keeps q un-tiled, "
                          f"as the reference does")
+    if T < 2 or T > 128 or T & (T - 1):
+        raise ValueError(f"T={T}: the column kernel takes T = 2**time_bits, "
+                         f"time_bits 1..7")
     if w.device != x.device:
         raise ValueError("weights must be on x's device")
-    if x.dtype != torch.uint8:  # spike times in [0, T], T <= 254
+    if x.dtype != torch.uint8:  # spike times in [0, T], T <= 128
         x = x.to(torch.uint8)
     w = w.to(torch.int8).contiguous()
     z = torch.empty((B, C, q), dtype=torch.int32, device=x.device)
@@ -145,19 +172,18 @@ def _column_cuda(x: torch.Tensor, w: torch.Tensor, theta: int, T: int,
     a.x, a.w, a.z = x.data_ptr(), w.data_ptr(), z.data_ptr()
     a.x_sb, a.x_sc, a.x_si = x.stride()
     a.B, a.C, a.p, a.q, a.T, a.theta, a.wta = B, C, p, q, T, theta, int(wta)
-    # one thread per (row, neuron); the site's weights in shared memory when
-    # they fit beside one row, else read from device memory; then fewer rows
-    # per block until the chunk fits
+    a.rows, a.w_smem = chunk_rows(B, T), 1
     lib = _lib()
-    a.rows, a.w_smem = 1, 1
+    # the site's weights in shared memory when they fit beside the chunk,
+    # else read from device memory; then smaller chunks until it fits
     if lib.tnn_column_smem_bytes(ctypes.byref(a)) > _build.MAX_SMEM:
         a.w_smem = 0
-    a.rows = max(1, min(B, MAX_THREADS // q))
+    tile = tile_rows(T)
     while lib.tnn_column_smem_bytes(ctypes.byref(a)) > _build.MAX_SMEM:
-        if a.rows == 1:
-            raise ValueError(f"p={p} is too long for one row's volley in "
+        if a.rows == tile:
+            raise ValueError(f"p={p} is too long for {tile} rows' volleys in "
                              f"{_build.MAX_SMEM} bytes of shared memory")
-        a.rows //= 2
+        a.rows = halve_rows(a.rows, T)
     _build.launch("tnn_column", lib.tnn_column_launch,
                   lib.tnn_column_error_string, x.device, ctypes.byref(a))
     LAUNCHES.n += 1

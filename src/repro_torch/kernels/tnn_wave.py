@@ -29,6 +29,7 @@ from repro_torch.core.stdp import STDPConfig, stdp_net_from_uniforms
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.padding import NetworkPlan
+from repro_torch.kernels.tnn_column import chunk_rows, halve_rows, tile_rows
 
 MAX_LAYERS = 8        # TNN_MAX_LAYERS in csrc/tnn_wave.cu
 MAX_THREADS = 256     # TNN_MAX_THREADS in csrc/tnn_wave.cu
@@ -127,6 +128,7 @@ class _WaveArgs(ctypes.Structure):
         ("ud_sc", ctypes.c_longlong * _L), ("ud_sb", ctypes.c_longlong * _L),
         ("net", ctypes.c_void_p * _L),
         ("consts", ctypes.c_void_p),
+        ("u_stage", ctypes.c_int),
     ]
 
 
@@ -176,8 +178,8 @@ def _check_inputs(x: torch.Tensor, params, plan: NetworkPlan) -> None:
             raise ValueError("weights must be contiguous and on x's device")
 
 
-def _fill_common(x: torch.Tensor, params, plan: NetworkPlan, learn: bool,
-                 threads: int) -> Tuple[_WaveArgs, list]:
+def _fill_common(x: torch.Tensor, params, plan: NetworkPlan,
+                 learn: bool) -> Tuple[_WaveArgs, list]:
     """The launch arguments shared by both halves; returns them and the
     freshly allocated z outputs."""
     B, C, _ = x.shape
@@ -193,17 +195,26 @@ def _fill_common(x: torch.Tensor, params, plan: NetworkPlan, learn: bool,
         z = torch.empty((B, C, q), dtype=SPIKE_DTYPE, device=x.device)
         a.z[l] = z.data_ptr()
         zs.append(z)
-    # rows per chunk: one thread per row, as many as the batch needs up to
-    # the thread count, halved until the chunk's volleys fit shared memory
-    a.threads = threads
-    a.rows = min(threads, max(32, -(-B // 32) * 32))
+    # rows per chunk: at most CHUNK_TILES m16 tiles, the batch split evenly;
+    # when learning, each chunk's uniforms staged in shared memory beside
+    # it. Smaller chunks until it fits; then, learning, the uniforms read
+    # from device memory instead.
+    T, tile = plan.T, tile_rows(plan.T)
+    a.rows, a.u_stage = chunk_rows(B, T), int(learn)
     lib = _lib()
     while lib.tnn_wave_smem_bytes(ctypes.byref(a)) > _build.MAX_SMEM:
-        if a.rows <= 32:
+        if a.rows > tile:
+            a.rows = halve_rows(a.rows, T)
+        elif a.u_stage:
+            a.rows, a.u_stage = chunk_rows(B, T), 0
+        else:
             raise ValueError(
-                f"plan {plan.ps}x{plan.qs} needs more than {_build.MAX_SMEM} bytes "
-                f"of shared memory per site even at 32 rows per chunk")
-        a.rows //= 2
+                f"plan {plan.ps}x{plan.qs} needs more than {_build.MAX_SMEM} "
+                f"bytes of shared memory per site even at {tile} rows per chunk")
+    # one warp per m16 tile unit of a chunk, up to 8; all 8 when learning
+    # (the copies and the epilogue use every thread)
+    units = a.rows if T >= 16 else a.rows * T // 16
+    a.threads = MAX_THREADS if learn else 32 * min(MAX_THREADS // 32, units)
     return a, zs
 
 
@@ -215,8 +226,7 @@ def _launch(a: _WaveArgs, device: torch.device) -> None:
 
 def _wave_forward_cuda(x, params, plan: NetworkPlan):
     _check_inputs(x, params, plan)
-    a, zs = _fill_common(x, params, plan, learn=False,
-                         threads=min(128, max(32, -(-x.shape[0] // 32) * 32)))
+    a, zs = _fill_common(x, params, plan, learn=False)
     _launch(a, x.device)
     LAUNCHES.forward += 1
     return tuple(zs)
@@ -227,7 +237,7 @@ def _wave_train_cuda(x, params, uniforms, plan: NetworkPlan):
     if len(uniforms) != plan.n_layers:
         raise ValueError(f"{len(uniforms)} uniform pairs for {plan.n_layers} layers")
     B, C, _ = x.shape
-    a, zs = _fill_common(x, params, plan, learn=True, threads=MAX_THREADS)
+    a, zs = _fill_common(x, params, plan, learn=True)
     nets = []
     for l, ((uu, ud), p, q) in enumerate(zip(uniforms, plan.ps, plan.qs)):
         for u in (uu, ud):
