@@ -398,14 +398,17 @@ def check_columns(dev):
     return err
 
 
-def check_stdp_one(name, w, x, z, u, out):
+def check_stdp_one(name, w, x, z, u_up, u_dn, out):
     kw = dict(T=T, w_max=W_MAX, table=STDP_TABLE, out=out, **MU)
-    rk = stdp_update.stdp_update_layer(w, x, z, u[:, 0], u[:, 1], **kw)
-    rp = stdp_update.stdp_update_layer_plain(w, x, z, u[:, 0], u[:, 1], **kw)
+    rk = stdp_update.stdp_update_layer(w, x, z, u_up, u_dn, **kw)
+    rp = stdp_update.stdp_update_layer_plain(w, x, z, u_up, u_dn, **kw)
     torch.cuda.synchronize()
     err = _max_err(rk, rp)
     moved = rk if out == "net" else rk - w.to(torch.int32)
+    pl = stdp_update.plan(x.shape[0], w.shape[1], w.shape[2])
+    fill = "bulk" if stdp_update.bulk_fill(u_up, u_dn) else "cp.async"
     print(f"  stdp {name} out={out}: w {tuple(w.shape)} B={x.shape[0]} "
+          f"({pl.tiles} tile(s) of {pl.n}, {pl.rows} rows/stage, {fill} fill) "
           f"|moved|={int(moved.abs().sum())} max_abs_err={err}", flush=True)
     return _require_exact(f"stdp {name}", err)
 
@@ -422,7 +425,28 @@ def _stdp_inputs(g, C, B, dev, th1=12):
     return [(w1, x, z1, u1), (w2, z1, z2, u2)]
 
 
+def _stdp_random(g, C, B, p, q, dev):
+    """Random weights, volleys and a (C, 2, B, p, q) draw at any widths."""
+    return (_weights(g, (C, p, q), dev), _spikes(g, (B, C, p), dev),
+            _spikes(g, (B, C, q), dev),
+            torch.rand((C, 2, B, p, q), generator=g).to(dev))
+
+
+def _shifted(u):
+    """A copy of ``u`` whose storage starts 4 bytes past an aligned one:
+    every plane is off the 16-byte grid, so the ring fills by cp.async."""
+    flat = torch.empty(u.numel() + 1, dtype=u.dtype, device=u.device)
+    flat[1:] = u.flatten()
+    return flat[1:].view(u.shape)
+
+
 def check_stdps(dev):
+    """The STDP kernel against its plain version: both served layers at full
+    width (every uniform case, both outputs, the draw's views, two separate
+    tensors and a misaligned copy), few sites (C = 1, 8: fewer items than
+    persistent blocks), odd and long batches (B = 7, 1000: many chunks, the
+    last partial), odd widths (p*q = 99: the cp.async fill), and planes
+    split into several tiles."""
     err = 0
     g = _gen(200)
     for l, (w, x, z, u) in enumerate(_stdp_inputs(g, 625, 16, dev), start=1):
@@ -430,34 +454,74 @@ def check_stdps(dev):
             for kind, uu in (("random", u), ("all-0", torch.zeros_like(u)),
                              ("all-1", torch.ones_like(u))):
                 err = max(err, check_stdp_one(f"full layer {l} B=16 {kind}",
-                                              w, x, z, uu, out))
-    # several batch chunks: more rows than one chunk of staged volleys holds
-    for l, (w, x, z, u) in enumerate(_stdp_inputs(g, 8, 1000, dev), start=1):
-        err = max(err, check_stdp_one(f"8 sites layer {l} B=1000", w, x, z, u, "net"))
+                                              w, x, z, uu[:, 0], uu[:, 1], out))
+            err = max(err, check_stdp_one(
+                f"full layer {l} B=16 separate u_up/u_dn", w, x, z,
+                u[:, 0].contiguous(), u[:, 1].contiguous(), out))
+        us = _shifted(u)
+        err = max(err, check_stdp_one(f"full layer {l} B=16 misaligned draw",
+                                      w, x, z, us[:, 0], us[:, 1], "weights"))
+    for C, B in ((1, 16), (8, 16), (8, 7), (8, 1000), (1, 1000)):
+        for l, (w, x, z, u) in enumerate(_stdp_inputs(g, C, B, dev), start=1):
+            for out in ("weights", "net"):
+                err = max(err, check_stdp_one(f"{C} site(s) layer {l} B={B}",
+                                              w, x, z, u[:, 0], u[:, 1], out))
+    for label, (C, B, p, q) in (
+            ("odd widths 11x9", (48, 37, 11, 9)),
+            ("odd widths 11x9, one site", (1, 7, 11, 9)),
+            ("odd widths 11x9, long batch", (8, 1000, 11, 9)),
+            ("2048x128 (tiles of 7 rows)", (3, 7, 2048, 128)),
+            ("4x2500 (tiles that are pieces of a row)", (4, 9, 4, 2500)),
+            ("3x1025 (pieces of a row, unaligned)", (2, 5, 3, 1025)),
+            ("33x31 (two tiles, unaligned)", (20, 33, 33, 31))):
+        w, x, z, u = _stdp_random(g, C, B, p, q, dev)
+        for out in ("weights", "net"):
+            err = max(err, check_stdp_one(label, w, x, z, u[:, 0], u[:, 1], out))
+        err = max(err, check_stdp_one(f"{label} separate u_up/u_dn", w, x, z,
+                                      u[:, 0].contiguous(), u[:, 1].contiguous(),
+                                      "net"))
+    # volleys read through strides on every axis (views of (p, B, C) tensors)
+    w, x, z, u = _stdp_random(g, 625, 16, 32, 12, dev)
+    xs = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    zs = z.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    err = max(err, check_stdp_one("full layer 1 B=16 strided volleys", w, xs, zs,
+                                  u[:, 0], u[:, 1], "net"))
     return err
 
 
 def check_wtas(dev):
+    """The WTA kernel against its plain version: q = 1, 12, 13, 128 at 1,
+    40,000 and 40,001 rows (a partial last tile), views that start off the
+    16-byte grid (the cp.async fill and plain stores), ties and all-T
+    rows."""
     err = 0
     g = _gen(300)
+    cases = [(f"({rows}, {q})", torch.randint(0, T + 1, (rows, q), generator=g,
+                                              dtype=torch.int32).to(dev))
+             for q in (1, 12, 13, 128) for rows in (1, 40_000, 40_001)]
+    for rows, q in ((4097, 13), (40_001, 13), (40_001, 12), (4097, 1)):
+        z = torch.randint(0, T + 1, (rows, q), generator=g, dtype=torch.int32).to(dev)
+        cases.append((f"z[1:] of ({rows}, {q}), {4 * q} bytes in", z[1:]))
     ties = torch.randint(T - 2, T + 1, (4096, 12), generator=g, dtype=torch.int32)
     silent = torch.full((4096, 12), T, dtype=torch.int32)
     silent[::3, 5] = T - 1
-    for name, z in (("(64*625, 12)", torch.randint(0, T + 1, (64 * 625, 12),
-                                                   generator=g, dtype=torch.int32)),
-                    ("q=128", torch.randint(0, T + 1, (4096, 128), generator=g,
-                                            dtype=torch.int32)),
-                    ("ties", ties), ("all-T rows", silent)):
-        z = z.to(dev)
+    cases += [("ties", ties.to(dev)), ("all-T rows", silent.to(dev))]
+    for name, z in cases:
         zk, zp = wta.wta(z, T=T), wta.wta_plain(z, T=T)
         torch.cuda.synchronize()
         e = _max_err(zk, zp)
         winners = int((zk < T).sum())
         if int(((zk < T).sum(-1) > 1).sum()):
             raise AssertionError(f"wta {name}: a row kept two spikes")
-        print(f"  wta {name}: winners={winners} max_abs_err={e}", flush=True)
+        tile = wta.tile_rows(z.shape[0], z.shape[1], _sm_count(dev))
+        print(f"  wta {name}: tile {tile} rows, {-(-z.shape[0] // tile)} blocks, "
+              f"winners={winners} max_abs_err={e}", flush=True)
         err = max(err, _require_exact(f"wta {name}", e))
     return err
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def measure_layer_kernels(dev):

@@ -14,12 +14,13 @@ that tree's ``repro_torch`` and then this tree's ``chip_smoke``, whose
 functions then run on the tree's kernels; a tree's kernels build into its
 own ``build/repro_torch``.
 
-Shapes are chip_smoke's served ones: ``tnn_wave`` forward at B = 64 and
-learning at B = 16, theta = (24, 8); ``tnn_column`` layers 1 and 2 at B = 64;
-``stdp_update`` at B = 16 and ``wta``, whose sources the two generations may
-share, as a check on the spread between turns. Prints one JSON line per
-tree (ms, plain ms and CUDA-event ms per call of each kernel), then the
-card's name and power limit.
+Shapes are chip_smoke's served ones: ``stdp_update`` layers 1 and 2 at
+B = 16 and ``wta`` on (64 * 625, 12); ``tnn_wave`` forward at B = 64 and
+learning at B = 16, theta = (24, 8), and ``tnn_column`` layers 1 and 2 at
+B = 64, whose sources two generations may share, as a check on the spread
+between turns. Prints one JSON line per tree (ms, plain ms and CUDA-event
+ms per call of each kernel: the events include the wrapper's host time),
+then the card's name and power limit.
 """
 from __future__ import annotations
 

@@ -13,13 +13,17 @@ share (``stdp_net_tile``), with leading batch dims (one per column here).
 
 Dispatch is by the device of ``x``. A CPU tensor runs the plain version
 :func:`stdp_update_layer_plain`. A CUDA tensor launches the hand-written
-Hopper kernel ``csrc/stdp_update.cu`` or raises; nothing falls back.
+Hopper kernel ``csrc/stdp_update.cu`` or raises; nothing falls back. The
+launch plan (:func:`plan`) and everything of the kernel's arguments but the
+pointers are worked out once per shape, strides and constants, and cached.
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 from typing import Sequence
 
 import torch
@@ -27,8 +31,12 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_TABLE = 128        # TNN_STDP_MAX_TABLE in csrc/stdp_update.cu (w_max <= 127)
-CHUNK_BYTES = 32_768   # shared memory for one chunk of staged volleys
-MAX_SMEM = _build.MAX_SMEM - 4 * MAX_TABLE  # dynamic, beside the table
+MAX_THREADS = 1024     # TNN_STDP_MAX_THREADS: a block's threads, at most
+MAX_TILE = MAX_THREADS - 32  # synapses per tile (one counting thread each)
+MAX_STAGES = 8         # TNN_STDP_MAX_STAGES
+VOLLEYS = 4            # TNN_STDP_VOLLEYS: volley bytes a counting thread loads
+STAGES = 2             # stages of the ring
+STAGE_BYTES = 24_576   # uniform bytes (both halves) one stage aims at
 OUTS = ("weights", "net")
 
 LAUNCHES = _build.LaunchCounter()
@@ -108,6 +116,79 @@ def stdp_update_layer_plain(
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class StdpPlan:
+    """How one launch cuts a layer: tiles of ``tk`` rows of i by ``tw``
+    columns of j (``tiles`` per site, ``n`` synapses, one counting thread
+    each; ``threads`` per block with the producer warp), ``rows`` batch rows
+    per ring stage, ``stages`` stages, volley groups of up to ``group``
+    chunks, and ``smem`` bytes of dynamic shared memory."""
+
+    tk: int
+    tw: int
+    n: int
+    tiles: int
+    threads: int
+    rows: int
+    stages: int
+    group: int
+    smem: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(n: int, rows: int, stages: int, threads: int) -> int:
+    """``stdp_smem_bytes`` of csrc/stdp_update.cu: the full and empty
+    mbarriers, the ring of u_up / u_dn rows (a row every round4(n) floats)
+    and two volley buffers of VOLLEYS bytes per counting thread."""
+    return 16 * stages + stages * 8 * rows * _round_up(n, 4) + 2 * VOLLEYS * (threads - 32)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_shape(p: int, q: int) -> tuple:
+    """(tk, tw): whole rows of the plane (tw = q, as many as MAX_TILE holds,
+    a multiple of 4 synapses where the plane is, so that bulk copies stay
+    aligned), or for q > MAX_TILE one row in the fewest equal pieces (a
+    multiple of 4 wide)."""
+    if q <= MAX_TILE:
+        tk = min(p, MAX_TILE // q)
+        step = 4 // math.gcd(q, 4)
+        if p * q % 4 == 0 and tk * q % 4 and tk >= step:
+            tk -= tk % step
+        return tk, q
+    return 1, _round_up(-(-q // -(-q // MAX_TILE)), 4)
+
+
+def plan(B: int, p: int, q: int) -> StdpPlan:
+    """The launch plan of a layer of (p, q) columns at batch ``B``: tiles
+    from :func:`tile_shape`, about STAGE_BYTES of uniforms per stage, no
+    more rows than one volley buffer holds beside the weights, and as many
+    chunks a volley group as the buffer holds."""
+    tk, tw = tile_shape(p, q)
+    n = tk * tw
+    threads = _round_up(n, 32) + 32
+    cap, vrow, nw = VOLLEYS * (threads - 32), tk + tw, _round_up(n, 4)
+    rows = max(1, min(B, STAGE_BYTES // (8 * nw), (cap - nw) // vrow))
+    group = max(1, (cap - nw) // (rows * vrow))
+    tiles = -(-p // tk) * -(-q // tw)
+    return StdpPlan(tk=tk, tw=tw, n=n, tiles=tiles, threads=threads, rows=rows,
+                    stages=STAGES, group=group,
+                    smem=smem_bytes(n, rows, STAGES, threads))
+
+
+def bulk_fill(u_up: torch.Tensor, u_dn: torch.Tensor) -> bool:
+    """Whether the ring can be filled by bulk copies: both uniform tensors
+    start 16-byte aligned and every site, row, tile and plane offset is a
+    multiple of 4 floats. Otherwise the kernel fills it 4 bytes at a time."""
+    p, q = u_up.shape[2:]
+    tk, tw = tile_shape(p, q)
+    return (all(u.data_ptr() % 16 == 0 and u.stride(0) % 4 == 0
+                and u.stride(1) % 4 == 0 for u in (u_up, u_dn))
+            and p * q % 4 == 0 and tk * tw % 4 == 0 and (tk > 1 or q % 4 == 0))
+
+
 class _StdpArgs(ctypes.Structure):
     """``StdpArgs`` of csrc/stdp_update.cu, field for field."""
 
@@ -126,7 +207,10 @@ class _StdpArgs(ctypes.Structure):
         ("out", ctypes.c_void_p),
         ("B", ctypes.c_int), ("C", ctypes.c_int), ("p", ctypes.c_int),
         ("q", ctypes.c_int), ("T", ctypes.c_int), ("w_max", ctypes.c_int),
-        ("rows", ctypes.c_int), ("weights_out", ctypes.c_int),
+        ("tk", ctypes.c_int), ("tw", ctypes.c_int), ("rows", ctypes.c_int),
+        ("stages", ctypes.c_int), ("group", ctypes.c_int), ("bulk", ctypes.c_int),
+        ("threads", ctypes.c_int), ("blocks", ctypes.c_int),
+        ("weights_out", ctypes.c_int),
         ("mu_c", ctypes.c_float), ("mu_b", ctypes.c_float),
         ("mu_s", ctypes.c_float),
         ("table", ctypes.c_float * MAX_TABLE),
@@ -141,6 +225,8 @@ def _lib() -> ctypes.CDLL:
     lib.tnn_stdp_launch.restype = ctypes.c_int
     lib.tnn_stdp_smem_bytes.argtypes = [args_p]
     lib.tnn_stdp_smem_bytes.restype = ctypes.c_size_t
+    lib.tnn_stdp_blocks_per_sm.argtypes = [args_p]
+    lib.tnn_stdp_blocks_per_sm.restype = ctypes.c_int
     lib.tnn_stdp_error_string.argtypes = [ctypes.c_int]
     lib.tnn_stdp_error_string.restype = ctypes.c_char_p
     return lib
@@ -149,6 +235,41 @@ def _lib() -> ctypes.CDLL:
 def build() -> None:
     """Build (if needed) and load the kernel library now."""
     _lib()
+
+
+@functools.lru_cache(maxsize=256)
+def _args_template(device: torch.device, B, C, p, q, x_strides, z_strides,
+                   uu_strides, ud_strides, bulk, T, w_max, table, mus,
+                   out) -> _StdpArgs:
+    """Everything of a launch's arguments but the pointers, made once per
+    shapes, strides and constants: the plan, the table, the mu values and
+    the grid from the occupancy query."""
+    pl = plan(B, p, q)
+    a = _StdpArgs()
+    a.x_sb, a.x_sc, a.x_si = x_strides
+    a.z_sb, a.z_sc, a.z_sj = z_strides
+    a.uu_sc, a.uu_sb = uu_strides
+    a.ud_sc, a.ud_sb = ud_strides
+    a.B, a.C, a.p, a.q, a.T, a.w_max = B, C, p, q, T, w_max
+    a.tk, a.tw, a.rows, a.stages, a.group = pl.tk, pl.tw, pl.rows, pl.stages, pl.group
+    a.bulk, a.threads = int(bulk), pl.threads
+    a.weights_out = int(out == "weights")
+    a.mu_c, a.mu_b, a.mu_s = mus
+    for k, v in enumerate(table):
+        a.table[k] = v
+    lib = _lib()
+    if lib.tnn_stdp_smem_bytes(ctypes.byref(a)) != pl.smem or pl.smem > _build.MAX_SMEM:
+        raise RuntimeError(f"the STDP plan {pl} disagrees with the kernel's "
+                           f"shared memory or exceeds {_build.MAX_SMEM} bytes")
+    with torch.cuda.device(device):
+        per_sm = lib.tnn_stdp_blocks_per_sm(ctypes.byref(a))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if per_sm <= 0:
+        raise RuntimeError(f"stdp_update cannot run plan {pl}: "
+                           f"{lib.tnn_stdp_error_string(-per_sm).decode()}"
+                           if per_sm < 0 else f"stdp_update plan {pl} fits no SM")
+    a.blocks = min(C * pl.tiles, sms * per_sm)
+    return a
 
 
 def _stdp_cuda(w, x, z, u_up, u_dn, *, T, w_max, table, mu_capture,
@@ -182,22 +303,13 @@ def _stdp_cuda(w, x, z, u_up, u_dn, *, T, w_max, table, mu_capture,
     res = torch.empty((C, p, q), dtype=torch.int32, device=x.device)
     if B == 0:  # no row votes: the counters are 0
         return res.zero_() if out == "net" else res.copy_(w.clamp(0, w_max))
-    a = _StdpArgs()
+    a = _StdpArgs.from_buffer_copy(_args_template(
+        x.device, B, C, p, q, x.stride(), z.stride(), u_up.stride()[:2],
+        u_dn.stride()[:2], bulk_fill(u_up, u_dn), T, w_max, table,
+        (mu_capture, mu_backoff, mu_search), out))
     a.w, a.x, a.z, a.out = w.data_ptr(), x.data_ptr(), z.data_ptr(), res.data_ptr()
-    a.x_sb, a.x_sc, a.x_si = x.stride()
-    a.z_sb, a.z_sc, a.z_sj = z.stride()
-    a.u_up, a.uu_sc, a.uu_sb = u_up.data_ptr(), u_up.stride(0), u_up.stride(1)
-    a.u_dn, a.ud_sc, a.ud_sb = u_dn.data_ptr(), u_dn.stride(0), u_dn.stride(1)
-    a.B, a.C, a.p, a.q, a.T, a.w_max = B, C, p, q, T, w_max
-    a.rows = max(1, min(B, CHUNK_BYTES // (p + q)))
-    a.weights_out = int(out == "weights")
-    a.mu_c, a.mu_b, a.mu_s = mu_capture, mu_backoff, mu_search
-    for k, v in enumerate(table):
-        a.table[k] = v
+    a.u_up, a.u_dn = u_up.data_ptr(), u_dn.data_ptr()
     lib = _lib()
-    if lib.tnn_stdp_smem_bytes(ctypes.byref(a)) > MAX_SMEM:
-        raise ValueError(f"p + q = {p + q} is too long for one row's volleys "
-                         f"in {MAX_SMEM} bytes of shared memory")
     _build.launch("stdp_update", lib.tnn_stdp_launch, lib.tnn_stdp_error_string,
                   x.device, ctypes.byref(a))
     LAUNCHES.n += 1

@@ -20,7 +20,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_Q = 128
+MAX_Q = 128              # TNN_WTA_MAX_Q in csrc/wta.cu
+MAX_TILE_BYTES = 16_384  # TNN_WTA_MAX_TILE_BYTES: one block's rows of z
+TILE_BYTES = 8_192       # the most a tile aims at
+BLOCKS_PER_SM = 8        # the tiles a shape is cut into, per SM, where it can
+THREADS = 128            # per block (TNN_WTA_MAX_THREADS at most)
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -34,9 +38,30 @@ def wta_plain(z: torch.Tensor, *, T: int) -> torch.Tensor:
     return torch.where((key == winner) & (zi < T), zi, T).to(torch.int32)
 
 
-# tnn_wta_launch(z, out, rows, q, T, stream) in csrc/wta.cu
+def tile_rows(rows: int, q: int, sms: int) -> int:
+    """Rows per block: a multiple of 4 (so every full tile is a 16-byte
+    multiple for the bulk copies), at most about TILE_BYTES of z, and few
+    enough that ``rows`` make BLOCKS_PER_SM blocks per SM where they can
+    (small blocks, all resident at once: the kernel is a latency chain of
+    copy in, WTA, copy out)."""
+    cap = max(4, TILE_BYTES // (4 * q) // 4 * 4)
+    spread = -(-rows // (BLOCKS_PER_SM * sms))
+    return max(4, min(cap, -(-spread // 4) * 4))
+
+
+def group_lanes(q: int) -> int:
+    """Lanes per row: the power of two >= q / 4 (about 4 words a lane), at
+    most a warp."""
+    g = 1
+    while g < min(-(-q // 4), 32):
+        g *= 2
+    return g
+
+
+# tnn_wta_launch(z, out, rows, q, T, tile, threads, group, stream) in csrc/wta.cu
 LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +72,11 @@ def _lib() -> ctypes.CDLL:
     lib.tnn_wta_error_string.argtypes = [ctypes.c_int]
     lib.tnn_wta_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def build() -> None:
@@ -65,7 +95,8 @@ def _wta_cuda(z: torch.Tensor, T: int) -> torch.Tensor:
         return out
     lib = _lib()
     _build.launch("wta", lib.tnn_wta_launch, lib.tnn_wta_error_string, z.device,
-                  zi.data_ptr(), out.data_ptr(), rows, q, T)
+                  zi.data_ptr(), out.data_ptr(), rows, q, T,
+                  tile_rows(rows, q, _sm_count(z.device)), THREADS, group_lanes(q))
     LAUNCHES.n += 1
     return out
 

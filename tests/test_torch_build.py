@@ -77,8 +77,15 @@ def test_wrapper_constants_match_the_sources():
     assert _defines(_source("tnn_wave.cu"))["TNN_MAX_LAYERS"] == tnn_wave.MAX_LAYERS
     assert (_defines(_source("tnn_column.cu"))["TNN_COLUMN_MAX_THREADS"]
             == tnn_column.MAX_THREADS)
-    assert (_defines(_source("stdp_update.cu"))["TNN_STDP_MAX_TABLE"]
-            == stdp_update.MAX_TABLE)
+    stdp = _defines(_source("stdp_update.cu"))
+    assert stdp["TNN_STDP_MAX_TABLE"] == stdp_update.MAX_TABLE
+    assert stdp["TNN_STDP_MAX_THREADS"] == stdp_update.MAX_THREADS
+    assert stdp["TNN_STDP_MAX_STAGES"] == stdp_update.MAX_STAGES
+    assert stdp["TNN_STDP_VOLLEYS"] == stdp_update.VOLLEYS
+    assert stdp_update.STAGES <= stdp_update.MAX_STAGES
+    w = _defines(_source("wta.cu"))
+    assert w["TNN_WTA_MAX_Q"] == wta.MAX_Q
+    assert w["TNN_WTA_MAX_TILE_BYTES"] == wta.MAX_TILE_BYTES
 
 
 def test_wta_launch_signature_matches_the_source():
@@ -94,8 +101,8 @@ def test_wta_launch_signature_matches_the_source():
 
 def test_sources_follow_includes():
     names = [p.name for p in _build.sources("stdp_update")]
-    assert names == ["stdp_update.cu", "tnn_common.cuh"]
-    assert [p.name for p in _build.sources("wta")] == ["wta.cu"]
+    assert names == ["stdp_update.cu", "tnn_common.cuh", "tnn_async.cuh"]
+    assert [p.name for p in _build.sources("wta")] == ["wta.cu", "tnn_async.cuh"]
     for name in ("tnn_wave", "tnn_column"):
         assert "tnn_common.cuh" in [p.name for p in _build.sources(name)]
 
@@ -121,3 +128,15 @@ def test_library_path_changes_with_an_included_header(tmp_path):
     base = _build.library_path("tnn_column", csrc)
     (csrc / "extra.cuh").write_text("#pragma once\n// changed\n")
     assert _build.library_path("tnn_column", csrc) != base
+
+
+def test_library_path_changes_with_the_async_header(tmp_path):
+    """The async-copy header is part of the streaming kernels' builds only."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    names = ("tnn_wave", "tnn_column", "stdp_update", "wta")
+    before = {n: _build.library_path(n, csrc) for n in names}
+    header = csrc / "tnn_async.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n, csrc) for n in names}
+    assert [n for n in names if after[n] != before[n]] == ["stdp_update", "wta"]
