@@ -9,13 +9,17 @@ Phases, each of which fails the run on error:
 2. build    compile every CUDA kernel of the port (nvcc, sm_90a), one nvcc
             per source, all started together.
 3. kernels  hold each kernel against its plain PyTorch version on the card,
-            bit for bit (integer outputs, tolerance 0), at the serving
-            paths' shapes and a few more (for the column and wave kernels,
-            whose tensor-core tiling depends on T, also other wave specs,
-            odd batches and odd widths); time kernel and plain version.
-            The fused wave kernel (tnn_wave), then the per-layer kernels:
-            column forward (tnn_column), STDP update (stdp_update) and the
-            standalone WTA (wta).
+            bit for bit (integer outputs and float bit patterns, tolerance
+            0), at the serving and training paths' shapes and a few more
+            (for the column and wave kernels, whose tensor-core tiling
+            depends on T, also other wave specs, odd batches and odd
+            widths); time kernel and plain version. The fused wave kernel
+            (tnn_wave), then the per-layer kernels: column forward
+            (tnn_column), STDP update (stdp_update) and the standalone WTA
+            (wta); then the threefry STDP uniforms (threefry: the
+            known-answer vector, both prototype layers at B = 16, B = 1, 7
+            and 1000, one column, odd widths, columns that cross a block),
+            and the host draw + copy it replaced, timed beside it.
 4. serve    the launcher at full width (625 sites, 64 slots, 512 requests,
             4 STDP warm-up waves) on the card, with every kernel launch
             counted from 0 for each path: first ``--impl pallas`` (the
@@ -28,9 +32,17 @@ Phases, each of which fails the run on error:
 5. fallback a "fused" network the wave kernel cannot hold (layer-1 fan-in
             600) runs forward and one learning wave on the card through the
             per-layer kernels, and equals its plain version.
-6. report   one JSON line with the serve and shape numbers, one with every
-            kernel's numbers, the card's nvidia-smi line, then the result
-            line.
+6. train    the train launcher at full width (625 sites, 1 epoch = 32 waves
+            of 16 images, a vote-table eval, checkpoints every 16 waves) on
+            the card, counts from 0 for each run: A ``--impl pallas``, B
+            ``--impl fused --superbatch-k 4``, C a new trainer resuming from
+            A's wave-16 checkpoint alone; then the same epoch on the CPU
+            (plain path). All four end with the same weights, key, wave,
+            vote table and accuracy. Then a span of training waves per
+            backend untraced (waves/s) and traced (device idle share).
+7. report   one JSON line with the serve, train and shape numbers, one with
+            every kernel's numbers, the card's nvidia-smi line, then the
+            result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -38,6 +50,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -47,41 +61,80 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import convert  # noqa: E402
+from repro_torch import random as t_random  # noqa: E402
 from repro_torch.configs.tnn_mnist import (  # noqa: E402
     deep_config, launcher_network_config, network_config,
 )
 from repro_torch.core.column import ColumnConfig  # noqa: E402
 from repro_torch.core.layer import LayerConfig  # noqa: E402
 from repro_torch.core.network import (  # noqa: E402
-    NetworkConfig, _uses_fused_wave, network_forward, network_train_wave,
+    NetworkConfig, _uses_fused_wave, init_train_state, make_superbatch_step,
+    make_train_step, network_forward, network_train_wave,
 )
 from repro_torch.core.stdp import default_stabilize_table  # noqa: E402
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, stdp_update, tnn_column, tnn_wave, wta,
+    _build, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
 from repro_torch.kernels.padding import network_plan  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
+from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s;
 # the int8 tensor-core rate, at which the column and wave kernels run the
-# ramp product; and the float32 rate outside the tensor cores, used for the
-# other kernels' 32-bit arithmetic (int32 is not faster). Each operation is
-# priced at the rate of the unit that does it, so the bound stays a lower
-# bound.
+# ramp product; the float32 rate outside the tensor cores, used for the
+# STDP and WTA kernels' compares and selects; and the INT32 rate, 64 INT32
+# lanes per SM x 132 SMs x 1.98 GHz (the boost clock), for the threefry
+# kernel's shifts and logic. Each operation is priced at the rate of the
+# unit that does it, so the bound stays a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_INT8_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Operations per threefry uniform that only the INT32 pipe issues: the
+# rotate (SHF) and the xor (LOP3) of each of the 20 rounds, and the xor,
+# shift and or that build the float. Its 32 adds (20 in the rounds, 10 key
+# injections, 2 initial) are left out on purpose, a looser floor: an add
+# issues either as IADD3 on the INT32 pipe or as IMAD on the FMA-heavy
+# pipe, which has 64 lanes per SM too and runs beside it, and 32 adds a
+# float fit there under the 43 the INT32 pipe must take. (The build phase
+# prints the SASS mix: nvcc puts about 6 adds a float on IADD3, about 48
+# INT32-pipe operations a float in all.)
+THREEFRY_INT_OPS = 20 * 2 + 3
 
-KERNELS = ("tnn_wave", "tnn_column", "stdp_update", "wta")
+KERNELS = ("tnn_wave", "tnn_column", "stdp_update", "wta", "threefry")
 SERVE_ARGS = ["--arch", "tnn-mnist", "--sites", "625", "--slots", "64",
               "--requests", "512", "--train-waves", "4"]
 TRAIN_WAVES, SLOTS, REQUESTS, FIT_IMAGES = 4, 64, 512, 256
+# the train phase: the launcher's full-width epoch (train_config(625))
+EPOCH_WAVES, WAVE_BATCH, TRAIN_IMAGES, EVAL_IMAGES = 32, 16, 512, 256
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")  # .gitignore lists build/
 T, W_MAX = 8, 7
 STDP_TABLE = default_stabilize_table(W_MAX)
 MU = dict(mu_capture=10 / 16, mu_backoff=6 / 16, mu_search=2 / 16)
+
+
+def sass_mix(name: str, kernel: str) -> dict:
+    """Opcode counts of the kernel function ``kernel`` in the built library
+    ``name``, from ``cuobjdump -sass`` beside nvcc ({} without it)."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
 def phase(name: str) -> None:
@@ -121,7 +174,7 @@ def _require_exact(name: str, err: int) -> int:
 
 def reset_counts() -> None:
     tnn_wave.LAUNCHES.reset()
-    for mod in (tnn_column, stdp_update, wta):
+    for mod in (tnn_column, stdp_update, wta, threefry):
         mod.LAUNCHES.reset()
 
 
@@ -129,7 +182,8 @@ def read_counts() -> dict:
     return {"tnn_wave[forward]": tnn_wave.LAUNCHES.forward,
             "tnn_wave[learn]": tnn_wave.LAUNCHES.learn,
             "tnn_column": tnn_column.LAUNCHES.n,
-            "stdp_update": stdp_update.LAUNCHES.n, "wta": wta.LAUNCHES.n}
+            "stdp_update": stdp_update.LAUNCHES.n, "wta": wta.LAUNCHES.n,
+            "threefry": threefry.LAUNCHES.n}
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +283,13 @@ def forward_work(cfg, x, ws, plan):
     return nbytes, ops
 
 
-def ops_ms(ramp_ops: float = 0, scalar_ops: float = 0) -> float:
+def ops_ms(ramp_ops: float = 0, scalar_ops: float = 0, int_ops: float = 0) -> float:
     """Least ms for the operations: the ramp work (column_ops, counted in
     the direct form whatever implements it) at the int8 tensor-core rate the
-    column and wave kernels run it at, the rest at the scalar rate."""
-    return 1e3 * (ramp_ops / TENSOR_INT8_OPS_PER_S + scalar_ops / SCALAR_OPS_PER_S)
+    column and wave kernels run it at, 32-bit integer hashing at the INT32
+    rate, the rest at the scalar (float32) rate."""
+    return 1e3 * (ramp_ops / TENSOR_INT8_OPS_PER_S + scalar_ops / SCALAR_OPS_PER_S
+                  + int_ops / INT32_OPS_PER_S)
 
 
 def bound(nbytes: int, t_ops: float):
@@ -245,8 +301,8 @@ def bound(nbytes: int, t_ops: float):
 
 
 def _timing(name, B, kernel_ms, plain_ms, readings, nbytes, ramp_ops=0,
-            scalar_ops=0):
-    ops, t_ops = ramp_ops + scalar_ops, ops_ms(ramp_ops, scalar_ops)
+            scalar_ops=0, int_ops=0):
+    ops, t_ops = ramp_ops + scalar_ops + int_ops, ops_ms(ramp_ops, scalar_ops, int_ops)
     bms, by, bytes_ms = bound(nbytes, t_ops)
     print(f"  {name} B={B}: kernel {readings[1]:.4f}/{readings[2]:.4f} ms on the "
           f"card ({readings[4]:.4f} ms per call by CUDA events), plain "
@@ -614,10 +670,11 @@ def serve_path(impl: str, dev):
 def expected_launches(n_layers: int, served_waves: int) -> dict:
     """Per-layer launches of one launcher run: a forward per layer for each
     warm-up wave, fit chunk, served wave and the spike-count pass; an STDP
-    update per layer for each warm-up wave."""
+    update and a threefry draw per layer for each warm-up wave."""
     forwards = TRAIN_WAVES + FIT_IMAGES // SLOTS + served_waves + 1
     return {"tnn_column": n_layers * forwards,
-            "stdp_update": n_layers * TRAIN_WAVES}
+            "stdp_update": n_layers * TRAIN_WAVES,
+            "threefry": n_layers * TRAIN_WAVES}
 
 
 def same_result(a, b, what: str) -> None:
@@ -717,10 +774,285 @@ def fallback_path(dev):
           f"max_abs_err={err}", flush=True)
     _require_exact("fallback network", err)
     want = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 4,
-            "stdp_update": 2, "wta": 0}
+            "stdp_update": 2, "wta": 0, "threefry": 0}
     if counts != want:
         raise AssertionError(f"fallback launches {counts}, expected {want}")
     return err, counts
+
+
+# ---------------------------------------------------------------------------
+# The threefry STDP uniforms (port slice 5)
+# ---------------------------------------------------------------------------
+
+
+def check_threefry_one(name, key, C, B, p, q, dev) -> float:
+    """Kernel vs plain draw on the card, bit for bit; returns max_abs_err."""
+    shape = (2, B, p, q)
+    uk = threefry.layer_uniforms(key, C, shape, device=dev)
+    up = threefry.layer_uniforms_plain(key, C, shape, device=dev)
+    torch.cuda.synchronize()
+    same = torch.equal(uk.view(torch.int32), up.view(torch.int32))
+    err = float((uk - up).abs().max())
+    n = 2 * B * p * q
+    print(f"  threefry {name}: {C} column(s) of {shape} = {n} floats "
+          f"({-(-n // (4 * threefry.THREADS))} block(s) a column), "
+          f"min {float(uk.min()):.6f} max {float(uk.max()):.6f}, bits equal "
+          f"{same}, max_abs_err={err}", flush=True)
+    if not same or err:
+        raise AssertionError(f"threefry {name}: kernel disagrees with the plain "
+                             f"version (max_abs_err={err})")
+    return err
+
+
+def check_threefrys(dev) -> float:
+    """The known-answer vector through the kernel's own hash, 100,000 random
+    counter pairs against the plain hash, then the uniform draw at the
+    training path's shapes and its edges."""
+    y = threefry.hash_pairs((0x13198A2E, 0x03707344),
+                            torch.tensor([0x243F6A88], device=dev),
+                            torch.tensor([0x85A308D3], device=dev))
+    got = tuple(int(v) for v in y)
+    print(f"  threefry known-answer vector: {got[0]:#010x} {got[1]:#010x} "
+          f"(want 0xc4923a9c 0x483df7a0)", flush=True)
+    if got != (0xC4923A9C, 0x483DF7A0):
+        raise AssertionError(f"threefry known-answer vector: {got}")
+    g = _gen(600)
+    x0, x1 = (torch.randint(0, 2**32, (100_000,), generator=g, dtype=torch.int64)
+              for _ in range(2))
+    key = t_random.PRNGKey(600)
+    hk = threefry.hash_pairs(key, x0.to(dev), x1.to(dev))
+    hp = threefry.hash_pairs(key, x0, x1)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(hk, hp)):
+        raise AssertionError("threefry hash disagrees with the plain version")
+    err = 0.0
+    layer_key = t_random.split(t_random.PRNGKey(1), 2)
+    for name, key, (C, B, p, q) in (
+            ("layer 1 B=16", layer_key[0], (625, 16, 32, 12)),
+            ("layer 2 B=16", layer_key[1], (625, 16, 12, 10)),
+            ("layer 1 B=1", layer_key[0], (625, 1, 32, 12)),
+            ("layer 2 B=7", layer_key[1], (625, 7, 12, 10)),
+            ("layer 1 B=1000, 8 sites", layer_key[0], (8, 1000, 32, 12)),
+            ("one column", t_random.PRNGKey(5), (1, 16, 32, 12)),
+            ("odd widths 32x11 B=7", t_random.PRNGKey(6), (48, 7, 32, 11)),
+            ("odd widths 11x9 B=1 (columns off the 16-byte grid)",
+             t_random.PRNGKey(7), (3, 1, 11, 9)),
+            ("1092 floats a column (crosses a 1024-float block)",
+             t_random.PRNGKey(8), (5, 3, 13, 14)),
+            ("1026 floats a column (crosses, unaligned)", t_random.PRNGKey(9),
+             (4, 1, 27, 19)),
+            ("70,000 columns of 2 (more columns than the grid's y)",
+             t_random.PRNGKey(10), (70_000, 1, 1, 1))):
+        err = max(err, check_threefry_one(name, key, C, B, p, q, dev))
+    return err
+
+
+def measure_threefry(dev):
+    """Kernel and plain ms at the training path's shapes: both layers of one
+    learning wave at B = 16, 625 sites. A wave launches each layer once, so
+    the row's ms, plain ms and bound are the mean over the two launches and
+    twice the ms is one wave's worth. Bytes: the floats written (the key is
+    two kernel arguments); operations: THREEFRY_INT_OPS per float at the
+    INT32 rate."""
+    key = t_random.PRNGKey(11)
+    per = []
+    for l, (p, q) in enumerate(((32, 12), (12, 10)), start=1):
+        shape = (2, WAVE_BATCH, p, q)
+        k = lambda: threefry.layer_uniforms(key, 625, shape, device=dev)  # noqa: E731
+        pl = lambda: threefry.layer_uniforms_plain(key, 625, shape, device=dev)  # noqa: E731
+        ms, plain_ms, readings = in_turns(k, pl, 200)
+        n = 625 * 2 * WAVE_BATCH * p * q
+        per.append(_timing(f"threefry layer {l}", WAVE_BATCH, ms, plain_ms, readings,
+                           4 * n, int_ops=THREEFRY_INT_OPS * n))
+    return _mean_timing(per)
+
+
+def measure_draw_host_time(dev, reps: int = 5):
+    """Host time (perf_counter, ending in a synchronize) of one learning
+    wave's draw at B = 16: the parent's (``torch.rand`` of both layers'
+    (625, 2, 16, p, q) on the host, copied to the card) against the
+    threefry kernel's two launches. Best of ``reps`` each, in turns."""
+    g = _gen(700)
+    key = t_random.PRNGKey(12)
+    shapes = [(2, WAVE_BATCH, p, q) for p, q in ((32, 12), (12, 10))]
+
+    def parent():
+        return [torch.rand((625, *sh), generator=g).to(dev) for sh in shapes]
+
+    def kernel():
+        return [threefry.layer_uniforms(k, 625, sh, device=dev)
+                for k, sh in zip(t_random.split(key, 2), shapes)]
+
+    out = {"parent_host_draw_ms": [], "kernel_draw_ms": []}
+    for _ in range(reps):
+        for name, fn in (("parent_host_draw_ms", parent), ("kernel_draw_ms", kernel)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0))
+    print(f"  one learning wave's uniforms (B=16, both layers, 40,320,000 "
+          f"bytes): parent's host draw + copy {min(out['parent_host_draw_ms']):.3f} "
+          f"ms, threefry kernel {min(out['kernel_draw_ms']):.3f} ms (host clock "
+          f"to a synchronize, best of {reps})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training path (port slice 5)
+# ---------------------------------------------------------------------------
+
+
+def train_args(impl: str, ckpt_dir: str, device: str, k: int = 1):
+    return ["--arch", "tnn-mnist", "--sites", "625", "--impl", impl,
+            "--ckpt-every", "16", "--superbatch-k", str(k), "--ckpt-dir", ckpt_dir,
+            "--device", device]
+
+
+def train_path(name: str, args):
+    """One train-launcher run on the card with every count set to 0 just
+    before it and read just after."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = launch_train.main(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    print(f"  {name}: wall {wall:.2f} s, waves/s {out['waves_per_s']:.1f} "
+          f"(median wave, each ending in a sync), accuracy {out['accuracy']}; "
+          f"launches {counts}", flush=True)
+    return out, counts, wall
+
+
+def expected_train_launches(impl: str, waves: int, evals: int) -> dict:
+    """Launches of a 2-layer train run of ``waves`` learning waves and
+    ``evals`` eval passes (each a forward over the 512 training images for
+    the vote table and the 256 held-out images, in 16-image chunks)."""
+    forwards = evals * (TRAIN_IMAGES + EVAL_IMAGES) // WAVE_BATCH
+    want = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 0,
+            "stdp_update": 0, "wta": 0, "threefry": 2 * waves}
+    if impl == "fused":
+        want.update({"tnn_wave[forward]": forwards, "tnn_wave[learn]": waves})
+    else:
+        want.update({"tnn_column": 2 * (waves + forwards), "stdp_update": 2 * waves})
+    return want
+
+
+def same_training(a, b, what: str) -> None:
+    """Two trainers' final weights, key, wave, vote table and accuracy."""
+    sa, sb = convert.state_to_numpy(a.state), convert.state_to_numpy(b.state)
+    for k in sa["params"]:
+        if not (sa["params"][k] == sb["params"][k]).all():
+            raise AssertionError(f"{what}: {k} differs")
+    if not ((sa["rng"] == sb["rng"]).all() and sa["wave"] == sb["wave"]):
+        raise AssertionError(f"{what}: key or wave differs")
+    if not torch.equal(a.vote_table.cpu(), b.vote_table.cpu()):
+        raise AssertionError(f"{what}: vote tables differ")
+    if a.accuracy != b.accuracy:
+        raise AssertionError(f"{what}: accuracy {a.accuracy} != {b.accuracy}")
+
+
+def profile_train(impl: str, k: int, dev, waves: int = 32, traced: int = 16):
+    """A span of learning waves on the card through the train steps the
+    trainer calls (``make_train_step``, or ``make_superbatch_step`` by K):
+    ``waves`` untraced, ending in one synchronize (waves/s with the waves
+    queued back to back), then ``traced`` under torch.profiler (device busy
+    time by kernel and the device's idle share of the wall time)."""
+    cfg = launcher_network_config(625, impl=impl)
+    state = init_train_state(t_random.PRNGKey(0), cfg, dev)
+    stream = WaveStream(cfg, TRAIN_IMAGES, WAVE_BATCH, seed=1, device=dev)
+    step = make_superbatch_step(cfg) if k > 1 else make_train_step(cfg)
+
+    def span(w0: int, n: int):
+        nonlocal state
+        for w in range(w0, w0 + n, k):
+            x = stream.superbatch_at(w, k) if k > 1 else stream.batch_at(w)
+            state, _ = step(state, x)
+        torch.cuda.synchronize()
+
+    span(0, 4 * k)  # warm-up
+    t0 = time.perf_counter()
+    span(4 * k, waves)
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        span(4 * k + waves, traced)
+        traced_wall = time.perf_counter() - t1
+    events = prof.key_averages()
+    card = on_card(events)
+    busy_us = sum(e.self_device_time_total for e in card)
+    if busy_us <= 0:
+        raise AssertionError(f"train {impl}: the traced span shows no device time")
+    idle = 1 - busy_us / (1e6 * traced_wall)
+    print(f"  train {impl} K={k}: {waves / wall:.1f} waves/s untraced ({waves} "
+          f"waves in {1e3 * wall:.3f} ms); traced {traced} waves: wall "
+          f"{1e3 * traced_wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle "
+          f"share {idle:.3f}", flush=True)
+    top = sorted(card, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    return {"waves_per_s": waves / wall, "traced_wall_ms": 1e3 * traced_wall,
+            "device_busy_ms": busy_us / 1e3, "device_idle_share": idle,
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top[:4]}}
+
+
+def train_phase(dev):
+    """A (pallas), B (fused, K = 4), C (resume from A's wave 16) on the card
+    and the CPU epoch; all must end in one state. Returns the numbers."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    dirs = {n: os.path.join(TRAIN_DIR, n) for n in ("a", "b", "c", "cpu")}
+    out_a, counts_a, wall_a = train_path(
+        "A --impl pallas", train_args("pallas", dirs["a"], "cuda"))
+    out_b, counts_b, wall_b = train_path(
+        "B --impl fused --superbatch-k 4", train_args("fused", dirs["b"], "cuda", k=4))
+    os.makedirs(dirs["c"])
+    shutil.copytree(os.path.join(dirs["a"], "step_00000016"),
+                    os.path.join(dirs["c"], "step_00000016"))
+    out_c, counts_c, wall_c = train_path(
+        "C resume from A's step_00000016", train_args("pallas", dirs["c"], "cuda"))
+    for name, counts, want in (
+            ("A", counts_a, expected_train_launches("pallas", EPOCH_WAVES, 1)),
+            ("B", counts_b, expected_train_launches("fused", EPOCH_WAVES, 1)),
+            ("C", counts_c, expected_train_launches("pallas", EPOCH_WAVES // 2, 1))):
+        if counts != want:
+            raise AssertionError(f"train {name} launches {counts}, expected {want}")
+    if not out_c["resumed"] or out_a["resumed"] or out_b["resumed"]:
+        raise AssertionError("only C should resume")
+    t0 = time.perf_counter()
+    out_cpu = launch_train.main(train_args("fused", dirs["cpu"], "cpu", k=4))
+    wall_cpu = time.perf_counter() - t0
+    print(f"  cpu (plain path, --impl fused --superbatch-k 4): wall {wall_cpu:.2f} s",
+          flush=True)
+    ta = out_a["trainer"]
+    same_training(ta, out_b["trainer"], "A (pallas) vs B (fused, K=4)")
+    same_training(ta, out_c["trainer"], "A vs C (resumed)")
+    same_training(ta, out_cpu["trainer"], "A (card) vs the CPU")
+    vt = ta.vote_table
+    if not (torch.isfinite(vt).all() and tuple(vt.shape) == (625, 10, 10)
+            and float(vt.sum()) >= 0 and ta.wave == EPOCH_WAVES):
+        raise AssertionError("the trained state is malformed")
+    init = init_train_state(t_random.PRNGKey(0), ta.cfg, "cpu")["params"]
+    moved = {k: int((w.cpu() != init[k]).sum()) for k, w in ta.state["params"].items()}
+    if not moved["layer_00"]:
+        raise AssertionError("an epoch of STDP left layer 1's weights as initialised")
+    print(f"  A == B == C == cpu at wave {ta.wave}: weights (moved from their "
+          f"initial values: {moved}), key, vote table (sum {float(vt.sum())}: "
+          f"layer 2 stays silent at 625 sites, as in the reference) and "
+          f"accuracy {ta.accuracy}", flush=True)
+    spans = {"pallas": profile_train("pallas", 1, dev),
+             "fused": profile_train("fused", 4, dev)}
+
+    def numbers(out, counts, wall):
+        return {"wall_s": wall, "waves_per_s": out["waves_per_s"],
+                "accuracy": out["accuracy"], "launches": counts}
+
+    return {"a_pallas": numbers(out_a, counts_a, wall_a),
+            "b_fused_k4": numbers(out_b, counts_b, wall_b),
+            "c_resumed": numbers(out_c, counts_c, wall_c),
+            "cpu_wall_s": wall_cpu, "final_wave": ta.wave, "weights_moved": moved,
+            "vote_table_sum": float(vt.sum()), "spans": spans}, counts_a
 
 
 # ---------------------------------------------------------------------------
@@ -746,7 +1078,7 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
-    for mod in (tnn_wave, tnn_column, stdp_update, wta):
+    for mod in (tnn_wave, tnn_column, stdp_update, wta, threefry):
         mod.build()
     print(f"  {', '.join(KERNELS)} built/loaded in {time.perf_counter() - t0:.1f} s "
           f"(in parallel)", flush=True)
@@ -754,6 +1086,10 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "smem" in line or line.startswith("["):
                 print(f"  {name}: {line.strip()}")
+    threefry_sass = sass_mix("threefry", "tnn_threefry_uniform_kernel")
+    print(f"  threefry: SASS of tnn_threefry_uniform_kernel (4 floats a thread and "
+          f"a column key a block): {threefry_sass or 'cuobjdump not found'}",
+          flush=True)
 
     phase("kernels vs plain (bit for bit): tnn_wave")
     full_hi = network_config(625, 24, 8, impl="fused")    # the served thresholds
@@ -787,6 +1123,11 @@ def main() -> int:
     errs["wta"] = check_wtas(dev)
     layer_timing = measure_layer_kernels(dev)
 
+    phase("kernels vs plain (bit for bit): threefry")
+    errs["threefry"] = check_threefrys(dev)
+    layer_timing["threefry"] = measure_threefry(dev)
+    draw_host = measure_draw_host_time(dev)
+
     phase("serve, impl=pallas (main path: launcher on the card, full width)")
     rep_p, counts_p, _ = serve_path("pallas", dev)
     want = expected_launches(2, rep_p.stats.waves)
@@ -804,6 +1145,9 @@ def main() -> int:
                              f"{rep_f.stats.waves} served waves")
     if counts_f["tnn_column"] or counts_f["stdp_update"] or counts_f["wta"]:
         raise AssertionError(f"the fused serve launched per-layer kernels: {counts_f}")
+    if counts_f["threefry"] != 2 * TRAIN_WAVES:
+        raise AssertionError(f"{counts_f['threefry']} threefry launches for "
+                             f"{TRAIN_WAVES} warm-up waves of 2 layers")
 
     phase("serve on the CPU (plain path, same seeds) and across backends")
     t0 = time.perf_counter()
@@ -823,6 +1167,9 @@ def main() -> int:
     phase("fallback: a fused network the wave kernel cannot hold")
     errs["fallback"], counts_fb = fallback_path(dev)
 
+    phase("train at full width (main path of slice 5: launcher, trainer, checkpoints)")
+    train, counts_t = train_phase(dev)
+
     phase("report")
     kernels = []
     for half in ("forward", "learn"):
@@ -836,14 +1183,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
-    for name, replaces in (("tnn_column", "src/repro/kernels/tnn_column.py:81"),
-                           ("stdp_update", "src/repro/kernels/stdp_update.py:67"),
-                           ("wta", "src/repro/kernels/wta.py:19")):
+    for name, replaces, counts in (
+            ("tnn_column", "src/repro/kernels/tnn_column.py:81", counts_p),
+            ("stdp_update", "src/repro/kernels/stdp_update.py:67", counts_p),
+            ("wta", "src/repro/kernels/wta.py:19", counts_p),
+            ("threefry", "jax.random.uniform (XLA threefry2x32; no Pallas kernel)",
+             counts_t)):
         t = layer_timing[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": counts_p[name],
+            "replaces": replaces, "launches": counts[name],
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
@@ -871,6 +1221,9 @@ def main() -> int:
                   "warmup_spikes": rep_p.warmup_spikes,
                   "served_spikes": rep_p.served_spikes},
         "fallback_launches": counts_fb,
+        "train": train,
+        "uniform_draw_host_ms": draw_host,
+        "threefry_sass": threefry_sass,
         "shapes": shapes,
         "seconds": time.perf_counter() - t_start,
     }))

@@ -12,7 +12,10 @@ of its own, in the order given, so that two generations of the kernels are
 compared on the same card in turns: old, new, new, old. The process imports
 that tree's ``repro_torch`` and then this tree's ``chip_smoke``, whose
 functions then run on the tree's kernels; a tree's kernels build into its
-own ``build/repro_torch``.
+own ``build/repro_torch``. Every tree must hold the modules and the five
+kernel sources this ``chip_smoke`` imports and builds (``repro_torch.random``,
+``kernels/threefry``, ``launch/train``, ``train/tnn_trainer``: trees from
+the training slice on).
 
 Shapes are chip_smoke's served ones: ``stdp_update`` layers 1 and 2 at
 B = 16 and ``wta`` on (64 * 625, 12); ``tnn_wave`` forward at B = 64 and

@@ -1,0 +1,218 @@
+"""Async, crash-atomic checkpoints on the reference's on-disk layout
+(``repro.checkpoint.checkpointer``), so either package restores the other's.
+
+Layout: ``<dir>/step_<N:08d>/`` holding ``meta.json`` (leaf paths, files,
+shapes, dtypes, the step and extra metadata) and one ``.npy`` per leaf. A
+leaf's path is the reference's ``jax.tree_util.keystr`` of a nested dict,
+keys in sorted order (``['params']['layer_00']``, ``['rng']``,
+``['vote_table']``, ``['wave']``), made here from the dict itself; its file
+is ``sha1(path)[:16] + ".npy"``. Writes go to ``step_N.tmp`` and are renamed
+into place; re-saving a step moves the live directory aside first, so every
+visible step directory is complete at every instant.
+
+The TNN training checkpoint is ``{"params": {"layer_NN": int8 (C, p, q)},
+"rng": uint32 (2,), "wave": int32 (), "vote_table": float32 (S, q,
+n_classes)}``; :func:`restore_tnn` refuses a checkpoint written for another
+network (``tnn_config_fingerprint``) before it loads any array.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class LeafSpec(NamedTuple):
+    """Shape and dtype of one checkpoint leaf (the restore target)."""
+
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def tnn_abstract_state(cfg) -> Dict[str, Any]:
+    """The restore target of a TNN training checkpoint: per-layer int8
+    weights ``layer_NN``, the uint32 threefry key, the int32 wave counter
+    and the last layer's (sites, q, n_classes) float32 vote table."""
+    params = {f"layer_{i:02d}": LeafSpec((l.n_cols, l.column.p, l.column.q),
+                                         np.dtype(np.int8))
+              for i, l in enumerate(cfg.layers)}
+    last = cfg.layers[-1]
+    return {"params": params,
+            "rng": LeafSpec((2,), np.dtype(np.uint32)),
+            "wave": LeafSpec((), np.dtype(np.int32)),
+            "vote_table": LeafSpec((last.n_cols, last.column.q, cfg.n_classes),
+                                   np.dtype(np.float32))}
+
+
+def tnn_config_fingerprint(cfg) -> str:
+    """The network's structure and thresholds, one segment per layer, as the
+    reference writes it into a checkpoint's metadata (the backend is left
+    out: weights do not depend on it)."""
+    layers = ";".join(
+        f"{l.n_cols}x{l.column.p}x{l.column.q}t{l.column.theta}"
+        for l in cfg.layers)
+    T = cfg.layers[0].column.wave.T
+    return f"tnn[{layers}]T{T}c{cfg.n_classes}"
+
+
+def restore_tnn(ckpt: "Checkpointer", cfg, step: Optional[int] = None,
+                device="cuda") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(state, extra)`` of the TNN checkpoint at ``step`` (default: the
+    latest), the state in the port's form (``convert.state_from_numpy``: the
+    weights and the vote table on ``device``, the key and the wave counter
+    on the host). Refuses a checkpoint whose fingerprint is not ``cfg``'s
+    before loading any array."""
+    from repro_torch.convert import state_from_numpy
+
+    if step is None:
+        step = ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt.dir}")
+    want = tnn_config_fingerprint(cfg)
+    got = ckpt.peek_extra(step).get("config")
+    if got != want:
+        raise ValueError(
+            f"checkpoint step {step} under {ckpt.dir!r} was written for "
+            f"{got!r}, not this run's {want!r}: point it at the matching "
+            f"run or a fresh directory")
+    tree, extra = ckpt.restore(step, tnn_abstract_state(cfg))
+    return state_from_numpy(tree, cfg, device), extra
+
+
+def _leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(keystr path, leaf) of a nested dict, keys in sorted order, as
+    ``jax.tree_util`` flattens and names it."""
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k in sorted(tree):
+            out += _leaf_paths(tree[k], f"{prefix}[{k!r}]")
+        return out
+    return [(prefix, tree)]
+
+
+def _unflatten(like, values: Dict[str, Any], prefix: str = ""):
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], values, f"{prefix}[{k!r}]") for k in like}
+    return values[prefix]
+
+
+def _fname(path: str) -> str:
+    return hashlib.sha1(path.encode()).hexdigest()[:16] + ".npy"
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu").numpy().copy()
+    return np.asarray(v)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write ---------------------------------------------------------------
+
+    def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None,
+             block: bool = False) -> None:
+        """Write ``state`` (a nested dict of tensors or arrays) as step
+        ``step``. The leaves are copied to the host here, before the writer
+        thread starts, so the caller may update its tensors in place at
+        once; it writes in the background unless ``block``, and
+        :meth:`wait` joins it."""
+        leaves = [(p, _host(v)) for p, v in _leaf_paths(state)]
+        meta = {
+            "step": int(step),
+            "leaves": [
+                {"path": p, "file": _fname(p), "shape": list(a.shape),
+                 "dtype": str(a.dtype)}
+                for p, a in leaves
+            ],
+            "extra": extra or {},
+        }
+        self.wait()
+        if not block:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, leaves, meta), daemon=True)
+            self._thread.start()
+        else:
+            self._write(step, leaves, meta)
+
+    def _write(self, step: int, leaves, meta) -> None:
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        tmp, old = final + ".tmp", final + ".old"
+        for stale in (tmp, old):
+            if os.path.exists(stale):
+                shutil.rmtree(stale)
+        os.makedirs(tmp)
+        for p, a in leaves:
+            np.save(os.path.join(tmp, _fname(p)), a)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        # re-saving a live step: move it aside in one rename, the new one in
+        # with a second, so a crash between them leaves the previous step as
+        # the latest and never a half-written one
+        if os.path.exists(final):
+            os.rename(final, old)
+        os.rename(tmp, final)
+        shutil.rmtree(old, ignore_errors=True)
+        self._gc()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"), ignore_errors=True)
+
+    # -- read ----------------------------------------------------------------
+
+    def all_steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def peek_extra(self, step: int) -> Dict[str, Any]:
+        """A checkpoint's extra metadata, without loading any array."""
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "meta.json")) as f:
+            return json.load(f).get("extra", {})
+
+    def restore(self, step: int, abstract_state) -> Tuple[Any, Dict[str, Any]]:
+        """Load step ``step`` into the structure of ``abstract_state`` (a
+        nested dict of :class:`LeafSpec`, or of arrays whose shapes are the
+        target's); returns (the tree of numpy arrays, extra metadata)."""
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        by_path = {l["path"]: l for l in meta["leaves"]}
+        vals = {}
+        for p, spec in _leaf_paths(abstract_state):
+            if p not in by_path:
+                raise KeyError(f"checkpoint missing leaf {p}")
+            arr = np.load(os.path.join(d, by_path[p]["file"]))
+            want = tuple(spec.shape) if hasattr(spec, "shape") else arr.shape
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{p}: checkpoint shape {arr.shape} != {want}")
+            vals[p] = arr
+        return _unflatten(abstract_state, vals), meta["extra"]

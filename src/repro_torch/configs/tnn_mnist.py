@@ -7,12 +7,17 @@ the matching input field is then (s+3, s+3) pixels.
 """
 import dataclasses
 import math
+import pathlib
 
 from repro_torch.core.column import ColumnConfig
 from repro_torch.core.layer import LayerConfig
 from repro_torch.core.network import NetworkConfig, prototype_config, with_impl
 from repro_torch.core.stdp import STDPConfig
 from repro_torch.core.temporal import WaveSpec
+
+# where the train launcher checkpoints by default: inside the checkout, in a
+# directory .gitignore lists
+DEFAULT_CKPT_DIR = str(pathlib.Path(__file__).resolve().parents[3] / "build" / "tnn_ckpt")
 
 WAVE = WaveSpec(time_bits=3, weight_bits=3)
 STDP = STDPConfig()
@@ -98,3 +103,18 @@ def launcher_network_config(sites: int, depth: int = 2,
         widths = (12,) * (depth - 1) + (10,)
         cfg = deep_config(sites=sites, widths=widths, impl=impl)
     return dataclasses.replace(cfg, packed=packed)
+
+
+def train_config(sites: int = 625, smoke: bool = False, **overrides):
+    """Trainer hyper-parameters for the prototype, as the reference's
+    ``train_config``: at full geometry 16-image waves over a 512-image
+    labelled set and 256 held-out images; ``smoke=True`` or fewer than 625
+    sites shrinks that to 8 / 64 / 32. Keyword overrides are applied last."""
+    from repro_torch.train.tnn_trainer import TNNTrainConfig
+
+    kw = dict(epochs=1, wave_batch=16, train_size=512, eval_size=256,
+              ckpt_dir=DEFAULT_CKPT_DIR)
+    if smoke or sites < 625:
+        kw.update(wave_batch=8, train_size=64, eval_size=32, log_every=2)
+    kw.update(overrides)
+    return TNNTrainConfig(**kw)

@@ -1,6 +1,7 @@
-"""Weights across the two packages: the reference's per-layer weights (numpy
-arrays, a list of them, or its ``{"layer_NN": ...}`` tree) to the port's
-int8 tensors, and back."""
+"""Weights and training states across the two packages: the reference's
+per-layer weights (numpy arrays, a list of them, or its ``{"layer_NN": ...}``
+tree) to the port's int8 tensors, and back; and its training state (params
+tree, key data, wave counter) to the port's state, and back."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Union
@@ -8,6 +9,7 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import random as _random
 from repro_torch.core.network import NetworkConfig
 from repro_torch.device import resolve_device
 
@@ -52,3 +54,37 @@ def params_from_numpy(arrays_or_tree: ArraysOrTree, cfg: NetworkConfig,
 def params_to_numpy(params: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """The inverse: per-layer int8 numpy arrays (copied to the host)."""
     return [w.detach().to("cpu").numpy().astype(np.int8) for w in params]
+
+
+def state_from_numpy(tree: Dict, cfg: NetworkConfig, device="cuda") -> Dict:
+    """A training state as numpy (the reference's ``init_train_state`` /
+    ``make_train_step`` state after ``np.asarray``: ``{"params": {"layer_NN":
+    ...}, "rng": (2,) uint32 key data, "wave": int32}``) -> the port's state:
+    the weights on ``device``, the key and the wave counter on the host. Other
+    leaves (a checkpoint's ``vote_table``) come along as float32 on
+    ``device``."""
+    dev = resolve_device(device)
+    params = params_from_numpy(tree["params"], cfg, dev)
+    out = {"params": {f"layer_{i:02d}": w for i, w in enumerate(params)},
+           "rng": _random.as_key(np.asarray(tree["rng"])),
+           "wave": torch.tensor(int(np.asarray(tree["wave"])), dtype=torch.int32)}
+    if out["rng"].shape != (2,):
+        raise ValueError(f"rng: one key is (2,), got {tuple(out['rng'].shape)}")
+    for name, v in tree.items():
+        if name not in out:
+            out[name] = torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    return out
+
+
+def state_to_numpy(state: Dict) -> Dict:
+    """The inverse: the reference's numpy form of a training state (int8
+    weights, uint32 key data, int32 wave; any other leaf as float32)."""
+    out = {"params": {k: w.detach().to("cpu").numpy().astype(np.int8)
+                      for k, w in sorted(state["params"].items())},
+           "rng": _random.as_key(state["rng"]).numpy().astype(np.uint32),
+           "wave": np.asarray(int(state["wave"]), np.int32)}
+    for name, v in state.items():
+        if name not in out:
+            out[name] = np.asarray(v.detach().to("cpu").numpy()
+                                   if isinstance(v, torch.Tensor) else v, np.float32)
+    return out

@@ -35,13 +35,18 @@ from repro_torch.core.network import (
     encode_images,
     forward_all_padded,
     init_network,
+    init_train_state,
     input_wave_spec,
+    make_superbatch_step,
+    make_train_step,
     network_forward,
+    network_train_superbatch,
     network_train_wave,
     params_from_tree,
     params_to_tree,
     prototype_config,
     refresh_vote_table,
+    superbatch_keys,
     vote_sums,
     winner_map,
     with_impl,

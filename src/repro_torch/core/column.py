@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import random as _random
 from repro_torch.core.stdp import STDPConfig
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.device import resolve_device
@@ -55,16 +56,14 @@ class ColumnConfig:
             raise ValueError(f"theta {self.theta} unreachable for p={self.p}")
 
 
-def init_weights(gen: torch.Generator, p: int, q: int, spec: WaveSpec,
+def init_weights(key, p: int, q: int, spec: WaveSpec,
                  device="cuda") -> torch.Tensor:
-    """Uniform-random initial weights in [0, w_max], int8. Drawn on the
-    generator's device and moved to ``device`` (the card unless the caller
-    names the CPU), so a CPU generator gives the same weights whatever
-    device they end up on."""
+    """Uniform-random initial weights in [0, w_max], int8: the reference's
+    ``jax.random.randint(key, (p, q), 0, w_max + 1, int8)`` bit for bit
+    (``repro_torch.random``). Drawn on the host and moved to ``device`` (the
+    card unless the caller names the CPU)."""
     dev = resolve_device(device)
-    w = torch.randint(0, spec.w_max + 1, (p, q), generator=gen,
-                      dtype=torch.int8, device=gen.device)
-    return w.to(dev)
+    return _random.randint(key, (p, q), 0, spec.w_max + 1, torch.int8).to(dev)
 
 
 def body_potential(x: torch.Tensor, w: torch.Tensor, spec: WaveSpec) -> torch.Tensor:

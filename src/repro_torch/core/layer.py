@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random as _random
 from repro_torch.core.column import (
     ColumnConfig, body_potential, column_forward_matmul, crossing_time,
     wta_inhibit,
@@ -29,6 +30,7 @@ from repro_torch.core.stdp import apply_net, stdp_net_from_uniforms
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import threefry as _kthreefry
 
 KERNEL_IMPLS = ("pallas", "fused")  # per-layer backends that launch kernels
 
@@ -52,15 +54,16 @@ class LayerConfig:
         return self.n_cols * self.column.p * self.column.q
 
 
-def init_layer(gen: torch.Generator, cfg: LayerConfig, device="cuda") -> torch.Tensor:
-    """Uniform-random (n_cols, p, q) int8 weights in [0, w_max], drawn from
-    ``gen`` on its own device and moved to ``device`` (the card unless the
-    caller names the CPU)."""
+def init_layer(key, cfg: LayerConfig, device="cuda") -> torch.Tensor:
+    """(n_cols, p, q) int8 weights in [0, w_max], as the reference's
+    ``init_layer``: column ``c`` is ``init_weights(split(key, n_cols)[c])``.
+    Drawn on the host and moved to ``device`` (the card unless the caller
+    names the CPU)."""
     dev = resolve_device(device)
     c = cfg.column
-    w = torch.randint(0, c.wave.w_max + 1, (cfg.n_cols, c.p, c.q),
-                      generator=gen, dtype=torch.int8, device=gen.device)
-    return w.to(dev)
+    keys = _random.split(key, cfg.n_cols)
+    return _random.randint(keys, (c.p, c.q), 0, c.wave.w_max + 1,
+                           torch.int8).to(dev)
 
 
 def layer_forward(x: torch.Tensor, w: torch.Tensor, cfg: LayerConfig) -> torch.Tensor:
@@ -78,18 +81,15 @@ def layer_forward(x: torch.Tensor, w: torch.Tensor, cfg: LayerConfig) -> torch.T
     return wta_inhibit(z, spec).transpose(0, 1)
 
 
-def layer_uniforms(gen: torch.Generator, cfg: LayerConfig, B: int,
-                   device="cuda") -> torch.Tensor:
+def layer_uniforms(key, cfg: LayerConfig, B: int, device="cuda") -> torch.Tensor:
     """One wave's STDP uniforms for a whole layer: (n_cols, 2, B, p, q)
-    float32 in [0, 1), u[:, 0] = up and u[:, 1] = down, drawn from ``gen``
-    on its own device and moved to ``device`` (the card unless the caller
-    names the CPU). The bits differ from the reference's threefry draws;
-    tests hand the reference's draws across."""
-    dev = resolve_device(device)
+    float32 in [0, 1), u[:, 0] = up and u[:, 1] = down, the reference's
+    draws bit for bit: column ``c`` is ``uniform(split(key, n_cols)[c],
+    (2, B, p, q))``. On the card one ``kernels.threefry`` launch draws them
+    there; on the CPU its plain version does."""
     p, q = cfg.column.p, cfg.column.q
-    u = torch.rand((cfg.n_cols, 2, B, p, q), generator=gen,
-                   dtype=torch.float32, device=gen.device)
-    return u.to(dev)
+    return _kthreefry.layer_uniforms(key, cfg.n_cols, (2, B, p, q),
+                                     device=device)
 
 
 def layer_stdp_net(
@@ -127,7 +127,7 @@ def layer_step(
     x: torch.Tensor,
     w: torch.Tensor,
     cfg: LayerConfig,
-    gen: Optional[torch.Generator] = None,
+    rng=None,
     learn: bool = True,
     *,
     uniforms: Optional[torch.Tensor] = None,
@@ -135,9 +135,9 @@ def layer_step(
     """One gamma wave for the whole layer: x (B, n_cols, p) -> (post-WTA
     spike times (B, n_cols, q) uint8, new int8 weights).
 
-    Learning takes the layer's (n_cols, 2, B, p, q) STDP uniforms as
-    ``uniforms`` (the tests hand the reference's draws across), or draws
-    them from ``gen`` with :func:`layer_uniforms`. ``"pallas"``/``"fused"``
+    Learning draws the layer's (n_cols, 2, B, p, q) STDP uniforms from the
+    key ``rng`` with :func:`layer_uniforms`, as the reference does, unless
+    they are given as ``uniforms``. ``"pallas"``/``"fused"``
     apply the update in the STDP kernel (``out="weights"``); the others
     apply the plain counters with ``apply_net``. Both are bit-exact with the
     reference's "sum" update on the same uniforms."""
@@ -146,9 +146,9 @@ def layer_step(
         return z, w
     cfg.column.stdp.require_sum()
     if uniforms is None:
-        if gen is None:
-            raise ValueError("learning requires gen or uniforms")
-        uniforms = layer_uniforms(gen, cfg, x.shape[0], x.device)
+        if rng is None:
+            raise ValueError("learning requires rng or uniforms")
+        uniforms = layer_uniforms(rng, cfg, x.shape[0], x.device)
     u_up, u_dn = uniforms[:, 0], uniforms[:, 1]
     if cfg.column.impl in KERNEL_IMPLS:
         w_new = _stdp_kernel(x, z, w, cfg, u_up, u_dn, out="weights")

@@ -8,6 +8,13 @@ network runs layer by layer through ``core.layer``: ``"pallas"`` (and a
 ``"fused"`` network the wave kernel cannot hold) on the per-layer kernels,
 ``"direct"`` and ``"matmul"`` on the plain column functions. Layers may mix
 backends; all four are bit-exact with each other.
+
+Training follows the reference's key chain (``repro_torch.random``, bit for
+bit ``jax.random``): ``init_train_state`` -> ``make_train_step`` /
+``make_superbatch_step`` -> ``network_train_wave``, whose STDP uniforms the
+threefry kernel draws on the card. The reference's counter-form
+``network_train_step`` exists so data shards can sum their counters; the
+port is unsharded, and ``network_train_wave`` is the same step bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random as _random
 from repro_torch.core.column import ColumnConfig
 from repro_torch.core.layer import (
     LayerConfig,
@@ -86,12 +94,13 @@ def with_impl(cfg: NetworkConfig, impl: str) -> NetworkConfig:
     return out
 
 
-def init_network(gen: torch.Generator, cfg: NetworkConfig,
-                 device="cuda") -> List[torch.Tensor]:
-    """Random int8 weights for every layer, drawn in layer order from
-    ``gen`` (on its own device) and placed on ``device``."""
+def init_network(key, cfg: NetworkConfig, device="cuda") -> List[torch.Tensor]:
+    """Random int8 weights for every layer, as the reference's
+    ``init_network``: layer ``i`` is ``init_layer(split(key, n_layers)[i])``.
+    Drawn on the host and placed on ``device``."""
     dev = resolve_device(device)
-    return [init_layer(gen, l, dev) for l in cfg.layers]
+    keys = _random.split(key, len(cfg.layers))
+    return [init_layer(k, l, dev) for k, l in zip(keys, cfg.layers)]
 
 
 def dog_filter(images01: torch.Tensor) -> torch.Tensor:
@@ -170,41 +179,153 @@ def network_train_wave(
     x: torch.Tensor,
     params: Sequence[torch.Tensor],
     cfg: NetworkConfig,
-    gen: Optional[torch.Generator] = None,
+    rng=None,
     *,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """One unsupervised gamma wave through the whole network (all layers
     learn). Returns (per-layer post-WTA spike times, new per-layer weights).
 
-    The STDP uniforms are one (C, 2, B, p, q) float32 tensor per layer, the
-    shape ``layer_uniforms`` draws: pass them as ``uniforms`` (the tests
-    hand the reference's draws across), or pass ``gen`` and they are drawn
-    from it layer by layer."""
+    The STDP uniforms are one (C, 2, B, p, q) float32 tensor per layer,
+    drawn as the reference draws them: layer ``i`` from
+    ``split(rng, n_layers)[i]`` with ``layer_uniforms`` (on the card, by the
+    threefry kernel), unless they are given as ``uniforms``."""
     for l in cfg.layers:
         l.column.stdp.require_sum()
     B = x.shape[0]
     if uniforms is None:
-        if gen is None:
-            raise ValueError("network_train_wave needs gen or uniforms")
-        uniforms = [layer_uniforms(gen, lcfg, B, x.device) for lcfg in cfg.layers]
+        if rng is None:
+            raise ValueError("network_train_wave needs rng or uniforms")
+        uniforms = _draw_uniforms(rng, cfg, B, x.device)
     elif len(uniforms) != len(cfg.layers):
         raise ValueError(f"{len(uniforms)} uniform tensors for "
                          f"{len(cfg.layers)} layers")
     if _uses_fused_wave(cfg):
-        plan = _kpad.network_plan(cfg, B, n_cols=x.shape[1])
-        zs, nets = _ktw.wave_train(
-            x, tuple(params), tuple((u[:, 0], u[:, 1]) for u in uniforms),
-            plan=plan)
-        return (list(zs),
-                [apply_net(w, net, lcfg.column.wave)
-                 for w, net, lcfg in zip(params, nets, cfg.layers)])
+        return _fused_train(x, params, cfg, uniforms)
     outs, new_params = [], []
     for w, lcfg, u in zip(params, cfg.layers, uniforms):
         x, w = layer_step(x, w, lcfg, uniforms=u)
         new_params.append(w)
         outs.append(x)
     return outs, new_params
+
+
+def _draw_uniforms(rng, cfg: NetworkConfig, B: int, device) -> List[torch.Tensor]:
+    """Every layer's wave uniforms from the wave key, as the reference splits
+    it: one key per layer, then one per column inside ``layer_uniforms``."""
+    keys = _random.split(rng, len(cfg.layers))
+    return [layer_uniforms(k, lcfg, B, device) for k, lcfg in zip(keys, cfg.layers)]
+
+
+def _fused_train(x, params, cfg: NetworkConfig, uniforms):
+    """The whole learning wave as one wave-kernel launch; the counters are
+    applied once per layer."""
+    plan = _kpad.network_plan(cfg, x.shape[0], n_cols=x.shape[1])
+    zs, nets = _ktw.wave_train(
+        x, tuple(params), tuple((u[:, 0], u[:, 1]) for u in uniforms),
+        plan=plan)
+    return (list(zs),
+            [apply_net(w, net, lcfg.column.wave)
+             for w, net, lcfg in zip(params, nets, cfg.layers)])
+
+
+# ---------------------------------------------------------------------------
+# Training steps: the weights updated in place
+# ---------------------------------------------------------------------------
+
+
+def superbatch_keys(rng, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-split K per-wave step keys from ONE stream key by the chained
+    ``split`` the sequential trainer performs (wave i's key is the second
+    half of the i-th split), as the reference's ``superbatch_keys``. Returns
+    ``(advanced stream key, (K, 2) per-wave keys)``."""
+    key, subs = _random.as_key(rng), []
+    for _ in range(k):
+        key, sub = _random.split(key)
+        subs.append(sub)
+    return key, torch.stack(subs) if subs else torch.empty((0, 2), dtype=torch.uint32)
+
+
+def network_train_superbatch(
+    x_k: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    cfg: NetworkConfig,
+    keys_k: torch.Tensor,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """K consecutive learning waves, wave ``i`` on ``(x_k[i], keys_k[i])``:
+    K :func:`network_train_wave` calls, as the reference's ``lax.scan``.
+    Returns (per-layer z stacks ((K, B, C, q_i) each), final weights)."""
+    params = list(params)
+    outs: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
+    for x, key in zip(x_k, keys_k):
+        zs, params = network_train_wave(x, params, cfg, key)
+        for acc, z in zip(outs, zs):
+            acc.append(z)
+    return [torch.stack(acc) for acc in outs], params
+
+
+def _update_in_place(params: Sequence[torch.Tensor], new: Sequence[torch.Tensor]) -> None:
+    """Write the new weights into the state's tensors: the reference donates
+    the state to its jitted step, so its update is in place too."""
+    for w, nw in zip(params, new):
+        w.copy_(nw)
+
+
+TrainState = Dict[str, object]
+TrainStep = Callable[[TrainState, torch.Tensor], Tuple[TrainState, torch.Tensor]]
+
+
+def make_train_step(cfg: NetworkConfig) -> TrainStep:
+    """The production train step ``(state, x) -> (state, z)``, as the
+    reference's ``make_train_step`` (unsharded).
+
+    ``state`` is ``{"params": {"layer_NN": int8}, "rng": (2,) uint32 key,
+    "wave": int32}``; ``x`` is one encoded wave batch (B, C, p) on the
+    weights' device. The key chain is the reference's: ``key, sub =
+    split(state["rng"])``, the wave runs on ``sub``. The weights are updated
+    in place (the reference donates the state), so callers keep only the
+    returned state. ``z`` is the last layer's post-WTA spike times."""
+
+    def step(state: TrainState, x: torch.Tensor):
+        params = params_from_tree(state["params"], cfg)
+        key, sub = _random.split(state["rng"])
+        outs, new_params = network_train_wave(x, params, cfg, sub)
+        _update_in_place(params, new_params)
+        return {"params": state["params"], "rng": key,
+                "wave": state["wave"] + 1}, outs[-1]
+
+    return step
+
+
+def make_superbatch_step(cfg: NetworkConfig) -> TrainStep:
+    """The K-wave train step ``(state, x_k) -> (state, z_k)``, as the
+    reference's ``make_superbatch_step`` (unsharded): ``x_k`` is (K, B, C, p)
+    and K is read from its shape; the per-wave keys are pre-split by
+    :func:`superbatch_keys`, so the result equals K :func:`make_train_step`
+    calls bit for bit; the weights are updated in place and the wave counter
+    advances by K. ``z_k`` stacks the last layer's spike times per wave."""
+
+    def step(state: TrainState, x_k: torch.Tensor):
+        k = x_k.shape[0]
+        params = params_from_tree(state["params"], cfg)
+        key, subs = superbatch_keys(state["rng"], k)
+        outs, new_params = network_train_superbatch(x_k, params, cfg, subs)
+        _update_in_place(params, new_params)
+        return {"params": state["params"], "rng": key,
+                "wave": state["wave"] + k}, outs[-1]
+
+    return step
+
+
+def init_train_state(key, cfg: NetworkConfig, device="cuda") -> TrainState:
+    """Fresh training state for :func:`make_train_step`, as the reference's
+    ``init_train_state``: ``k_params, k_stream = split(key)``, weights from
+    ``k_params`` on ``device``, the stream key ``k_stream`` and wave 0 on the
+    host."""
+    k_params, k_stream = _random.split(key)
+    return {"params": params_to_tree(init_network(k_params, cfg, device)),
+            "rng": k_stream,
+            "wave": torch.tensor(0, dtype=torch.int32)}
 
 
 def params_to_tree(params: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,103 @@
+"""A layer's STDP uniforms drawn on the card, bit for bit ``jax.random``'s: the
+reference's ``layer_uniforms`` (``repro.core.layer``), ``jax.random.uniform``
+of shape (2, B, p, q) vmapped over ``split(layer_key, n_cols)``.
+
+    layer_uniforms(key, n_cols, (2, B, p, q), device=...)  ->  (n_cols, 2, B, p, q) float32
+
+The key is host data (two uint32 words, ``repro_torch.random``), so the
+draw's device is named by ``device``. The CPU runs the plain version
+:func:`layer_uniforms_plain` (``random.uniform`` over ``random.split``). The
+card launches the hand-written Hopper kernel ``csrc/threefry.cu`` or raises;
+nothing falls back to a host draw. ``LAUNCHES`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Sequence
+
+import torch
+
+from repro_torch import random as _random
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+
+THREADS = 256  # per block (TNN_TF_MAX_THREADS at most); 4 floats a thread
+
+LAUNCHES = _build.LaunchCounter()
+
+# tnn_threefry_uniform_launch(out, key0, key1, n_cols, n, threads, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# tnn_threefry_hash_launch(x0, x1, y0, y1, key0, key1, n, stream)
+HASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint, ctypes.c_uint,
+                                         ctypes.c_longlong, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("threefry")
+    lib.tnn_threefry_uniform_launch.argtypes = LAUNCH_ARGTYPES
+    lib.tnn_threefry_uniform_launch.restype = ctypes.c_int
+    lib.tnn_threefry_hash_launch.argtypes = HASH_ARGTYPES
+    lib.tnn_threefry_hash_launch.restype = ctypes.c_int
+    lib.tnn_threefry_error_string.argtypes = [ctypes.c_int]
+    lib.tnn_threefry_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build (if needed) and load the kernel library now."""
+    _lib()
+
+
+def layer_uniforms_plain(key, n_cols: int, shape: Sequence[int],
+                         device="cpu") -> torch.Tensor:
+    """Plain version of :func:`layer_uniforms`, computed on ``device``."""
+    return _random.uniform(_random.split(key, n_cols), tuple(shape), device)
+
+
+def _uniforms_cuda(key, n_cols: int, shape, device: torch.device) -> torch.Tensor:
+    k0, k1 = _random.key_words(key)
+    out = torch.empty((n_cols, *shape), dtype=torch.float32, device=device)
+    n = math.prod(shape)
+    if n_cols < 1 or n == 0:
+        return out
+    lib = _lib()
+    _build.launch("threefry", lib.tnn_threefry_uniform_launch,
+                  lib.tnn_threefry_error_string, device,
+                  out.data_ptr(), k0, k1, n_cols, n, THREADS)
+    LAUNCHES.n += 1
+    return out
+
+
+def hash_pairs(key, x0: torch.Tensor, x1: torch.Tensor):
+    """The bare Threefry-2x32 hash of the counter pairs (x0, x1) (int64
+    tensors of uint32 words) under ``key``, as ``random.threefry2x32``: on a
+    CUDA tensor by the kernel's own hash (the known-answer check of the
+    card's arithmetic; no path calls it), on the CPU by the plain version."""
+    k0, k1 = _random.key_words(key)
+    if x0.device.type == "cpu":
+        return _random.threefry2x32(k0, k1, x0, x1)
+    words = [x.to(torch.int64).bitwise_and(_random.M32).to(torch.int32).contiguous()
+             for x in (x0, x1)]   # the same 32 bits, as int32
+    y = [torch.empty_like(words[0]) for _ in range(2)]
+    lib = _lib()
+    _build.launch("threefry hash", lib.tnn_threefry_hash_launch,
+                  lib.tnn_threefry_error_string, x0.device,
+                  words[0].data_ptr(), words[1].data_ptr(), y[0].data_ptr(),
+                  y[1].data_ptr(), k0, k1, words[0].numel())
+    return tuple(v.to(torch.int64).bitwise_and(_random.M32) for v in y)
+
+
+def layer_uniforms(key, n_cols: int, shape: Sequence[int], *,
+                   device="cuda") -> torch.Tensor:
+    """(n_cols, *shape) float32 uniforms in [0, 1): column ``c`` is
+    ``jax.random.uniform(split(key, n_cols)[c], shape)``. One kernel launch
+    on the card."""
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    if dev.type == "cpu":
+        return layer_uniforms_plain(key, n_cols, shape, dev)
+    return _uniforms_cuda(key, int(n_cols), shape, dev)

@@ -9,12 +9,16 @@ layer through the per-layer column and STDP kernels; ``--impl fused`` runs
 each wave as one wave-kernel launch; ``direct`` and ``matmul`` are the plain
 per-layer forms. All give the same bits.
 
-The sequence is the reference launcher's (``repro.launch.serve``, tnn half):
-random weights from a seed, ``--train-waves`` unsupervised STDP warm-up
-waves on 16 encoded labelled images, ``fit`` on ``digits(max(128, 4 * slots), seed=1)``, then serve
-``digits(requests, seed=2)`` through the continuous-batching engine.
-``--device cpu`` runs the same sequence on the plain PyTorch path; the
-weights and uniforms are drawn on the host, so both devices compute the
+The sequence is the reference launcher's (``repro.launch.serve``, tnn half),
+with its keys: weights from ``PRNGKey(0)``, ``--train-waves`` unsupervised
+STDP warm-up waves on 16 encoded labelled images, wave ``i`` on the second
+half of the ``i``-th split of the chain from ``PRNGKey(1)`` (the threefry
+kernel draws its uniforms on the card), ``fit`` on
+``digits(max(128, 4 * slots), seed=1)``, then serve ``digits(requests,
+seed=2)`` through the continuous-batching engine. The warmed weights and
+every class id equal the reference launcher's. ``--from-ckpt DIR`` serves a
+training checkpoint instead (either package's), with no warm-up.
+``--device cpu`` runs the same sequence on the plain PyTorch path, to the
 same bits.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import random as _random
 from repro_torch.configs.tnn_mnist import crop_field, launcher_network_config
 from repro_torch.core.network import (
     encode_images, init_network, network_forward, network_train_wave,
@@ -41,7 +46,7 @@ WARMUP_ROWS = 16
 class ServeReport:
     """What one launcher run produced."""
 
-    params: List[torch.Tensor]            # weights after the warm-up waves
+    params: List[torch.Tensor]            # the served weights (after the warm-up waves)
     vote_table: torch.Tensor
     results: Dict[int, int]               # uid -> class id
     labels: np.ndarray                    # the requests' true labels
@@ -66,17 +71,24 @@ def serve_tnn(args: argparse.Namespace) -> ServeReport:
     lab_imgs, lab_labs = digits(max(128, 4 * args.slots), seed=1)
     lab_imgs = crop_field(lab_imgs, args.sites)
 
-    params = init_network(torch.Generator().manual_seed(0), cfg, device)
-    x = encode_images(torch.from_numpy(lab_imgs).to(device), cfg)
-    gen = torch.Generator().manual_seed(1)  # host draws: same bits on any device
     warmup_spikes = []
-    for _ in range(args.train_waves):  # short unsupervised warm-up
-        zs, params = network_train_wave(x[:WARMUP_ROWS], params, cfg, gen)
-        warmup_spikes.append(spike_counts(zs, T))
-
-    eng = TNNEngine(cfg, params, n_slots=args.slots, impl=args.impl,
-                    device=device)
-    eng.fit(lab_imgs, lab_labs)
+    if args.from_ckpt:
+        eng = TNNEngine.from_checkpoint(
+            args.from_ckpt, cfg, n_slots=args.slots, impl=args.impl,
+            label_data=(lab_imgs, lab_labs), device=device)
+        print(f"warm-started from {args.from_ckpt}")
+    else:
+        params = init_network(_random.PRNGKey(0), cfg, device)
+        x = encode_images(torch.from_numpy(lab_imgs).to(device), cfg)
+        key = _random.PRNGKey(1)
+        for _ in range(args.train_waves):  # short unsupervised warm-up
+            key, k = _random.split(key)
+            zs, params = network_train_wave(x[:WARMUP_ROWS], params, cfg, k)
+            warmup_spikes.append(spike_counts(zs, T))
+        eng = TNNEngine(cfg, params, n_slots=args.slots, impl=args.impl,
+                        device=device)
+        eng.fit(lab_imgs, lab_labs)
+    params = eng.params
 
     test_imgs, test_labs = digits(args.requests, seed=2)
     test_imgs = crop_field(test_imgs, args.sites)
@@ -128,6 +140,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lockstep", action="store_true",
                     help="serve with the blocking one-wave-at-a-time loop "
                          "instead of the continuous-batching pipeline")
+    ap.add_argument("--from-ckpt", default=None, metavar="DIR",
+                    help="serve the latest training checkpoint in DIR "
+                         "(weights and vote table; no warm-up waves)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 

@@ -20,10 +20,11 @@ spike time ``T`` and skips the launch when the queue is empty.
 
 The readout is the paper's unsupervised labelling: :meth:`TNNEngine.fit`
 runs one labelled pass to build the per-site vote table, and every request
-is classified by the soft site vote.
+is classified by the soft site vote. :meth:`TNNEngine.from_checkpoint`
+serves a training checkpoint's weights and vote table instead.
 
 Not ported yet: device meshes, learning while serving (online STDP and hot
-swap), K-wave superbatch drains and warm starts from a checkpoint.
+swap) and K-wave superbatch drains.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.core.network import (
     classify,
     encode_images,
     network_forward,
+    params_from_tree,
     refresh_vote_table,
     with_impl,
 )
@@ -145,6 +147,48 @@ class TNNEngine:
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
         self._label_set: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        ckpt_dir: str,
+        cfg: NetworkConfig,
+        *,
+        step: Optional[int] = None,
+        n_slots: int = 8,
+        impl: str = "pallas",
+        label_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        device="cuda",
+    ) -> "TNNEngine":
+        """Serve a TNN training checkpoint (either package's; ``step=None``
+        takes the latest): its weights, and its vote table when the trainer
+        had run a labelling pass (``extra["has_vote"]``), so the engine
+        classifies without a ``fit`` pass. A checkpoint written before any
+        labelling pass holds an all-zero table: ``label_data=(images,
+        labels)`` rebuilds the readout at load, and without it this raises.
+        The checkpoint's key and wave counter are not used (learning while
+        serving is not ported)."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer, restore_tnn
+
+        state, extra = restore_tnn(Checkpointer(ckpt_dir), cfg, step, device)
+        eng = cls(cfg, params_from_tree(state["params"], cfg), n_slots=n_slots,
+                  impl=impl, device=device)
+        if label_data is not None:
+            eng.set_label_data(*label_data)
+        if extra.get("has_vote"):
+            eng.vote_table = state["vote_table"]
+        elif label_data is not None:
+            x, labs = eng._label_set
+            eng.vote_table = refresh_vote_table(
+                eng._forward, eng.params, x, labs, eng.cfg, n_slots)
+        else:
+            raise ValueError(
+                f"checkpoint step {extra.get('wave', step)} under {ckpt_dir!r} "
+                f"has no vote table (extra['has_vote'] is falsy: it was "
+                f"written before any labelling pass). Pass label_data=(images, "
+                f"labels) to rebuild the readout at load, or serve a "
+                f"checkpoint written after an eval pass.")
+        return eng
 
     def _forward(self, ps: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """(b, S, p) spikes -> (b, S, q) last-layer post-WTA times."""

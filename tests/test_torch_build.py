@@ -9,10 +9,10 @@ import shutil
 
 import pytest
 
-from repro_torch.kernels import _build, stdp_update, tnn_column, tnn_wave, wta
+from repro_torch.kernels import _build, stdp_update, threefry, tnn_column, tnn_wave, wta
 
 _C_SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-              "float": ctypes.c_float}
+              "float": ctypes.c_float, "unsigned": ctypes.c_uint}
 
 
 def _source(name):
@@ -97,6 +97,23 @@ def test_wta_launch_signature_matches_the_source():
         m = re.match(r"((?:const\s+)?[\w ]+?)\s*(\*?)\s*\w+$", p)
         want.append(_c_type(m.group(1), bool(m.group(2))))
     assert wta.LAUNCH_ARGTYPES == want
+
+
+def test_threefry_launch_signature_and_constants_match_the_source():
+    """The threefry wrapper's ctypes argument list is the C launch
+    function's, and its block size is one the kernel takes."""
+    text = _source("threefry.cu")
+    for fn, argtypes in (("tnn_threefry_uniform_launch", threefry.LAUNCH_ARGTYPES),
+                         ("tnn_threefry_hash_launch", threefry.HASH_ARGTYPES)):
+        params = re.search(r"int\s+%s\s*\(([^)]*)\)" % fn, text).group(1)
+        want = []
+        for p in params.split(","):
+            m = re.match(r"((?:const\s+)?[\w ]+?)\s*(\*?)\s*\w+$", " ".join(p.split()))
+            want.append(_c_type(m.group(1), bool(m.group(2))))
+        assert argtypes == want, fn
+    max_threads = _defines(text)["TNN_TF_MAX_THREADS"]
+    assert 32 <= threefry.THREADS <= max_threads and threefry.THREADS % 32 == 0
+    assert [p.name for p in _build.sources("threefry")] == ["threefry.cu"]
 
 
 def test_sources_follow_includes():

@@ -20,6 +20,7 @@ from repro.kernels import ref as j_ref
 from repro.kernels.stdp_update import stdp_net_tile as j_stdp_net_tile
 from repro.kernels import tnn_column as j_tnn_column
 
+from repro_torch import random as t_random
 from repro_torch.core import column as t_column
 from repro_torch.core import stdp as t_stdp
 from repro_torch.core import temporal as t_temporal
@@ -29,6 +30,7 @@ from repro_torch.kernels import padding as t_padding
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import stdp_update as t_stdp_update
 from repro_torch.kernels import tnn_column as t_tnn_column
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _eq(a, b):
@@ -220,14 +222,16 @@ def test_column_forward_and_wta(seed, B, p, q, time_bits, theta):
 
 
 def test_init_weights_range_and_generator():
+    """Same key, same weights (a key now, as in the reference; the name is
+    the test's from before the port drew threefry bits), in range, and the
+    reference's ``init_weights`` from that key bit for bit."""
     spec = t_temporal.WaveSpec()
-    g1 = torch.Generator().manual_seed(3)
-    g2 = torch.Generator().manual_seed(3)
-    w1 = t_column.init_weights(g1, 32, 12, spec, device="cpu")
-    w2 = t_column.init_weights(g2, 32, 12, spec, device="cpu")
+    w1 = t_column.init_weights(t_random.PRNGKey(3), 32, 12, spec, device="cpu")
+    w2 = t_column.init_weights(t_random.PRNGKey(3), 32, 12, spec, device="cpu")
     assert w1.dtype == torch.int8 and tuple(w1.shape) == (32, 12)
     assert torch.equal(w1, w2)
     assert int(w1.min()) >= 0 and int(w1.max()) <= spec.w_max
+    _eq(j_column.init_weights(jax.random.PRNGKey(3), 32, 12, j_temporal.WaveSpec()), w1)
 
 
 # -- launch plans ---------------------------------------------------------------

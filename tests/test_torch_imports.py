@@ -17,8 +17,12 @@ from repro_torch.configs.tnn_mnist import launcher_network_config
 from repro_torch.core.column import init_weights
 from repro_torch.core.layer import init_layer, layer_uniforms
 from repro_torch.core.network import init_network
+from repro_torch.kernels import threefry
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.random import PRNGKey
 from repro_torch.serve.tnn_engine import TNNEngine
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,23 +54,23 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_defaults_are_cuda_and_raise_without_a_card():
+def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     cfg = launcher_network_config(4)
-    gen = torch.Generator().manual_seed(0)
+    key = PRNGKey(0)
     with pytest.raises(RuntimeError, match="cuda"):
-        init_network(gen, cfg)
+        init_network(key, cfg)
     layer = cfg.layers[0]
     with pytest.raises(RuntimeError, match="cuda"):
-        init_weights(gen, layer.column.p, layer.column.q, layer.column.wave)
+        init_weights(key, layer.column.p, layer.column.q, layer.column.wave)
     with pytest.raises(RuntimeError, match="cuda"):
-        init_layer(gen, layer)
+        init_layer(key, layer)
     with pytest.raises(RuntimeError, match="cuda"):
-        layer_uniforms(gen, layer, 2)
-    assert init_layer(gen, layer, device="cpu").device.type == "cpu"
-    assert layer_uniforms(gen, layer, 2, device="cpu").device.type == "cpu"
-    params = init_network(gen, cfg, device="cpu")
+        layer_uniforms(key, layer, 2)
+    assert init_layer(key, layer, device="cpu").device.type == "cpu"
+    assert layer_uniforms(key, layer, 2, device="cpu").device.type == "cpu"
+    params = init_network(key, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         TNNEngine(cfg, params)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -74,6 +78,11 @@ def test_defaults_are_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         launch_serve.main(["--sites", "4", "--requests", "2"])
     assert launch_serve.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_train.main(["--smoke", "--ckpt-dir", str(tmp_path)])
+    assert launch_train.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        threefry.layer_uniforms(key, 4, (2, 1, 3, 2))
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

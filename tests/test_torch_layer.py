@@ -1,8 +1,8 @@
 """The port's per-layer backends (``"pallas"`` on the per-layer kernels'
 plain versions, ``"matmul"`` on the 0/1 product form) against the JAX
 reference's same backends: ``layer_step``, ``network_forward`` and
-``network_train_wave`` with the reference's own uniform draws handed across,
-a network that mixes backends, and a ``"fused"`` network the wave kernel
+``network_train_wave``, both with the reference's own uniform draws handed
+across and with the port drawing them from the same key, a network that mixes backends, and a ``"fused"`` network the wave kernel
 cannot hold (layer-1 fan-in 600), which both packages run layer by layer
 through the per-layer kernels. Every comparison is exact."""
 import jax
@@ -16,14 +16,17 @@ from repro.core import layer as j_layer
 from repro.core import network as j_network
 from repro.kernels import padding as j_padding
 
+from repro_torch import random as t_random
 from repro_torch.configs import tnn_mnist as t_tnn_mnist
 from repro_torch.core import column as t_column
 from repro_torch.core import layer as t_layer
 from repro_torch.core import network as t_network
 from repro_torch.kernels import padding as t_padding
 from repro_torch.kernels import stdp_update as t_stdp_update
+from repro_torch.kernels import threefry as t_threefry
 from repro_torch.kernels import tnn_column as t_tnn_column
 from repro_torch.kernels import tnn_wave as t_tnn_wave
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 T = 8
 
@@ -63,11 +66,15 @@ def _check_network(jcfg, tcfg, x, params, key, impls):
             assert b.dtype == torch.uint8
             _eq(a, b)
         zl_t, new_t = t_network.network_train_wave(xt, pt, cfg, uniforms=us)
-        for a, b in zip(zl_j, zl_t):
+        # and the port's own draws from the same key
+        zd_t, newd_t = t_network.network_train_wave(xt, pt, cfg, np.asarray(key))
+        for a, b, c in zip(zl_j, zl_t, zd_t):
             _eq(a, b)
-        for a, b in zip(new_j, new_t):
-            assert b.dtype == torch.int8
+            _eq(a, c)
+        for a, b, c in zip(new_j, new_t, newd_t):
+            assert b.dtype == torch.int8 and c.dtype == torch.int8
             _eq(a, b)
+            _eq(a, c)
     assert all(int((np.asarray(z) < T).sum()) > 0 for z in zl_j)
     assert any(not np.array_equal(np.asarray(a), b) for a, b in zip(new_j, params))
 
@@ -126,8 +133,9 @@ def test_fused_network_the_wave_kernel_cannot_hold():
 @pytest.mark.parametrize("impl", ["direct", "matmul", "pallas"])
 def test_layer_step(impl):
     """The reference's layer_step draws its own uniforms from its key; the
-    same draws handed to the port's give the same outputs and weights, for
-    the reference backend ``impl`` against every port backend."""
+    same draws handed to the port's, and the port's own draws from the same
+    key, give the same outputs and weights, for the reference backend
+    ``impl`` against every port backend."""
     jcfg = j_tnn_mnist.network_config(4, 12, 3)
     tcfg = t_tnn_mnist.network_config(4, 12, 3)
     jl = j_network.with_impl(jcfg, impl).layers[0]
@@ -142,23 +150,30 @@ def test_layer_step(impl):
         _eq(z_j, z_t)
         assert w_t.dtype == torch.int8
         _eq(w_j, w_t)
+        z_d, w_d = t_layer.layer_step(torch.from_numpy(x),
+                                      torch.from_numpy(params[0]), tl, np.asarray(key))
+        _eq(z_j, z_d)
+        _eq(w_j, w_d)
     assert not np.array_equal(np.asarray(w_j), params[0])
 
 
 def test_layer_step_draws_from_a_generator():
-    """Without uniforms, layer_step draws them with layer_uniforms from the
-    generator; learn=False leaves the weights alone; no kernel launches on
-    the CPU."""
+    """Without uniforms, layer_step draws them with layer_uniforms from its
+    key (the port's key now, as the reference's; the name is the test's
+    from before the port drew threefry bits); learn=False leaves the
+    weights alone; no kernel launches on the CPU."""
     tl = t_tnn_mnist.network_config(4, 12, 3, impl="pallas").layers[0]
     x, params = _case(t_tnn_mnist.network_config(4, 12, 3), 5, seed=15)
     xt, wt = torch.from_numpy(x), torch.from_numpy(params[0])
-    before = (t_tnn_column.LAUNCHES.n, t_stdp_update.LAUNCHES.n)
-    z, w = t_layer.layer_step(xt, wt, tl, torch.Generator().manual_seed(2))
-    u = t_layer.layer_uniforms(torch.Generator().manual_seed(2), tl, 5, device="cpu")
+    before = (t_tnn_column.LAUNCHES.n, t_stdp_update.LAUNCHES.n,
+              t_threefry.LAUNCHES.n)
+    z, w = t_layer.layer_step(xt, wt, tl, t_random.PRNGKey(2))
+    u = t_layer.layer_uniforms(t_random.PRNGKey(2), tl, 5, device="cpu")
     z2, w2 = t_layer.layer_step(xt, wt, tl, uniforms=u)
     assert torch.equal(z, z2) and torch.equal(w, w2)
     z3, w3 = t_layer.layer_step(xt, wt, tl, learn=False)
     assert torch.equal(z3, z) and w3 is wt
-    with pytest.raises(ValueError, match="gen or uniforms"):
+    with pytest.raises(ValueError, match="rng or uniforms"):
         t_layer.layer_step(xt, wt, tl)
-    assert (t_tnn_column.LAUNCHES.n, t_stdp_update.LAUNCHES.n) == before
+    assert (t_tnn_column.LAUNCHES.n, t_stdp_update.LAUNCHES.n,
+            t_threefry.LAUNCHES.n) == before

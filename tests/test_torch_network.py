@@ -24,6 +24,7 @@ from repro_torch.configs import tnn_mnist as t_tnn_mnist
 from repro_torch.core import layer as t_layer
 from repro_torch.core import network as t_network
 from repro_torch.data.mnist_like import digits as t_digits
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 T = 8
 
@@ -95,8 +96,9 @@ def _net_case(depth, sites):
 
 def test_network_train_wave_with_reference_draws():
     """One learning wave: the reference draws its own uniforms (per layer,
-    per column); the same draws are handed across, and each of the port's
-    four backends reproduces the reference's outputs and weights."""
+    per column); the same draws are handed across, and the port draws its
+    own from the same key, and each of the port's four backends reproduces
+    the reference's outputs and weights either way."""
     jcfg, tcfg, params, imgs = _net_case(2, 4)
     B = imgs.shape[0]
     key = jax.random.PRNGKey(7)
@@ -116,11 +118,14 @@ def test_network_train_wave_with_reference_draws():
         cfg = t_network.with_impl(tcfg, impl)
         pt = convert.params_from_numpy(params, cfg, device="cpu")
         zs_t, new_t = t_network.network_train_wave(x_t, pt, cfg, uniforms=ut)
-        for a, b in zip(zs_j, zs_t):
+        zs_d, new_d = t_network.network_train_wave(x_t, pt, cfg, np.asarray(key))
+        for a, b, c in zip(zs_j, zs_t, zs_d):
             _eq(a, b)
-        for a, b in zip(new_j, new_t):
-            assert b.dtype == torch.int8
+            _eq(a, c)
+        for a, b, c in zip(new_j, new_t, new_d):
+            assert b.dtype == torch.int8 and c.dtype == torch.int8
             _eq(a, b)
+            _eq(a, c)
         assert [int((z < T).sum()) for z in zs_t] == [
             int((np.asarray(z) < T).sum()) for z in zs_j]
     assert all(int((np.asarray(z) < T).sum()) > 0 for z in zs_j)

@@ -17,6 +17,7 @@ from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import stdp_update as t_stdp_update
 from repro_torch.kernels import tnn_column as t_tnn_column
 from repro_torch.kernels import wta as t_wta
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 T = 8
 W_MAX = 7

@@ -22,6 +22,7 @@ from repro_torch.data.mnist_like import digits
 from repro_torch.serve.tnn_engine import (
     ClassifyRequest, ServeTimeout, TNNEngine,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 SITES, SLOTS, N_REQ = 16, 8, 21  # 21 requests: the last wave is partial
 T = 8

@@ -20,6 +20,7 @@ from repro.kernels import tnn_wave as j_tnn_wave
 from repro_torch.configs.tnn_mnist import deep_config as t_deep_config
 from repro_torch.kernels import padding as t_padding
 from repro_torch.kernels import tnn_wave as t_tnn_wave
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 WIDTHS = {1: (12,), 2: (12, 10), 3: (12, 12, 10)}
 
