@@ -40,9 +40,30 @@ Phases, each of which fails the run on error:
             (plain path). All four end with the same weights, key, wave,
             vote table and accuracy. Then a span of training waves per
             backend untraced (waves/s) and traced (device idle share).
-7. report   one JSON line with the serve, train and shape numbers, one with
-            every kernel's numbers, the card's nvidia-smi line, then the
-            result line.
+7. firing   the serve launcher's sequence at theta = (12, 3), where layer 2
+            fires at full width, through the engine: pallas (card), fused
+            (card) and the CPU give one warmed weight set, one non-zero vote
+            table and the same class ids (a differing id is allowed only on a
+            near tie, a row whose top-two vote margin is below the largest
+            card-CPU sum difference, and is printed).
+8. online   learning while serving at theta = (12, 3): 1,024 requests, 64
+            slots, K = 4 superbatches, a hot swap every 4 learning waves;
+            pallas (card), fused (card), the CPU and fused lock-step at K = 1
+            give every uid the same class id and version, one shadow state
+            (equal to 16 train steps on the same volleys) and the same
+            published vote tables; launches as the code says; a traced pass
+            per backend.
+9. ckpt     train A's wave-16 checkpoint served online for waves 16-31 ends
+            at A's wave-32 state.
+10. loadgen the port's loadgen, online: closed loop, then 2 s of open loop at
+            half the closed loop's images/s; every request served, versions
+            never decrease along the retire order.
+11. flagship ``repro_torch.launch.tnn_mnist`` with its defaults, --impl fused,
+            on the card and the CPU: equal weights, vote table, centroids and
+            both accuracies; the PPA tables.
+12. report  one JSON line with the serve, train, slice-6 and shape numbers,
+            one with every kernel's numbers, the card's nvidia-smi line, then
+            the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -69,8 +90,9 @@ from repro_torch.configs.tnn_mnist import (  # noqa: E402
 from repro_torch.core.column import ColumnConfig  # noqa: E402
 from repro_torch.core.layer import LayerConfig  # noqa: E402
 from repro_torch.core.network import (  # noqa: E402
-    NetworkConfig, _uses_fused_wave, init_train_state, make_superbatch_step,
-    make_train_step, network_forward, network_train_wave,
+    NetworkConfig, _uses_fused_wave, forward_all_padded, init_train_state,
+    make_superbatch_step, make_train_step, network_forward, network_train_wave,
+    params_to_tree, train_stream_start, vote_sums,
 )
 from repro_torch.core.stdp import default_stabilize_table  # noqa: E402
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
@@ -79,7 +101,9 @@ from repro_torch.kernels import (  # noqa: E402
     _build, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
 from repro_torch.kernels.padding import network_plan  # noqa: E402
+from repro_torch.launch import loadgen as t_loadgen  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import tnn_mnist as t_flagship  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
@@ -1052,7 +1076,387 @@ def train_phase(dev):
             "b_fused_k4": numbers(out_b, counts_b, wall_b),
             "c_resumed": numbers(out_c, counts_c, wall_c),
             "cpu_wall_s": wall_cpu, "final_wave": ta.wave, "weights_moved": moved,
-            "vote_table_sum": float(vt.sum()), "spans": spans}, counts_a
+            "vote_table_sum": float(vt.sum()), "spans": spans}, counts_a, (dirs["a"], ta.state)
+
+
+# ---------------------------------------------------------------------------
+# The rest of serving (port slice 6): a firing readout, learning while
+# serving, a checkpoint served online, loadgen and the flagship run
+# ---------------------------------------------------------------------------
+
+FIRING = (12, 3)  # network_config(625, 12, 3): layer 2 fires at full width
+ONLINE_REQUESTS, SWAP_EVERY, ONLINE_K = 1024, 4, 4
+ONLINE_WAVES = ONLINE_REQUESTS // SLOTS
+ONLINE_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_online")  # .gitignore lists build/
+NO_LAUNCHES = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 0,
+               "stdp_update": 0, "wta": 0, "threefry": 0}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def firing_path(impl: str, dev):
+    """The launcher's sequence at theta = (12, 3) through the port engine on
+    ``dev``, counts from 0 just before it: weights from PRNGKey(0) and 4
+    warm-up waves, ``fit`` on digits(256, seed=1), 512 requests of
+    digits(512, seed=2) at 64 slots. Then (not counted) the requests' vote
+    sums."""
+    cfg = network_config(625, *FIRING, impl=impl)
+    lab_imgs, lab_labs = digits(FIT_IMAGES, seed=1)
+    imgs = digits(REQUESTS, seed=2)[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    params, spikes = launch_serve.warm_up(cfg, lab_imgs, TRAIN_WAVES, dev)
+    eng = TNNEngine(cfg, params, n_slots=SLOTS, impl=impl, device=dev)
+    eng.fit(lab_imgs, lab_labs)
+    for uid in range(REQUESTS):
+        eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
+    done = eng.run_until_done()
+    _sync(dev)
+    counts, wall = read_counts(), time.perf_counter() - t0
+    x = torch.cat([eng._encode(imgs[o:o + SLOTS]) for o in range(0, REQUESTS, SLOTS)])
+    z = forward_all_padded(eng._forward, eng.params, x, SLOTS, T)
+    sums = vote_sums(z, eng.vote_table, T).cpu()
+    print(f"  {dev.type} {impl}: wall {wall:.2f} s, warm-up spikes/layer {spikes[-1]}, "
+          f"vote table sum {float(eng.vote_table.sum())}, launches {counts}", flush=True)
+    return {"params": [w.cpu() for w in eng.params], "vote_table": eng.vote_table.cpu(),
+            "ids": [done[u].result for u in range(REQUESTS)], "sums": sums,
+            "counts": counts, "wall_s": wall, "spikes": spikes}
+
+
+def firing_phase(dev):
+    """pallas (card) == fused (card) == CPU at theta = (12, 3): warmed
+    weights, a non-zero vote table bit for bit, and every class id; a row
+    whose ids differ is allowed only where its top-two vote margin is below
+    the largest |card - CPU| sum difference (a near tie), and is printed."""
+    runs = {"pallas": firing_path("pallas", dev), "fused": firing_path("fused", dev),
+            "cpu": firing_path("fused", torch.device("cpu"))}
+    cpu = runs["cpu"]
+    if not float(cpu["vote_table"].sum()) > 0:
+        raise AssertionError("theta=(12, 3): the vote table is all zero")
+    fwd = FIT_IMAGES // SLOTS + REQUESTS // SLOTS  # fit chunks, served waves
+    want = {"pallas": {**NO_LAUNCHES, "tnn_column": 2 * (TRAIN_WAVES + fwd),
+                       "stdp_update": 2 * TRAIN_WAVES, "threefry": 2 * TRAIN_WAVES},
+            "fused": {**NO_LAUNCHES, "tnn_wave[forward]": fwd,
+                      "tnn_wave[learn]": TRAIN_WAVES, "threefry": 2 * TRAIN_WAVES}}
+    top2 = cpu["sums"].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    diff = max(float((runs[k]["sums"] - cpu["sums"]).abs().max()) for k in ("pallas", "fused"))
+    near_rows = []
+    for name in ("pallas", "fused"):
+        r = runs[name]
+        if r["counts"] != want[name]:
+            raise AssertionError(f"firing {name} launches {r['counts']}, expected {want[name]}")
+        for l, (a, b) in enumerate(zip(r["params"], cpu["params"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"firing {name}: warmed layer-{l} weights differ")
+        if not torch.equal(r["vote_table"], cpu["vote_table"]):
+            raise AssertionError(f"firing {name}: the vote table differs from the CPU's")
+        for u, (a, b) in enumerate(zip(r["ids"], cpu["ids"])):
+            if a != b:
+                if float(margin[u]) >= diff:
+                    raise AssertionError(f"firing {name}: request {u} class {a} != CPU {b} "
+                                         f"with margin {float(margin[u])} >= {diff}")
+                near_rows.append((name, u, a, b, cpu["sums"][u].tolist()))
+    nz = margin[margin > 0]
+    labels = digits(REQUESTS, seed=2)[1]
+    acc = float((torch.tensor(cpu["ids"]) == torch.from_numpy(labels)).float().mean())
+    print(f"  pallas (card) == fused (card) == cpu at theta=(12, 3): weights, vote table "
+          f"(sum {float(cpu['vote_table'].sum())}) and {REQUESTS - len(near_rows)} of "
+          f"{REQUESTS} class ids; accuracy {acc}; vote sums: smallest top-two margin "
+          f"{float(margin.min())} (smallest non-zero {float(nz.min()) if nz.numel() else None}; "
+          f"{int((margin < diff).sum())} rows below the difference, "
+          f"{int((top2[:, 0] == 0).sum())} with every sum 0), largest |card - cpu| "
+          f"{diff}; near-tie rows whose id differs: {near_rows}", flush=True)
+    return {"accuracy": acc, "vote_table_sum": float(cpu["vote_table"].sum()),
+            "min_margin": float(margin.min()),
+            "min_nonzero_margin": float(nz.min()) if nz.numel() else None,
+            "max_sum_diff": diff, "rows_below_diff": int((margin < diff).sum()),
+            "near_tie_rows_differing": near_rows,
+            "launches": {k: runs[k]["counts"] for k in ("pallas", "fused")},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "warmup_spikes": cpu["spikes"]}, cpu["params"]
+
+
+def online_engine(impl: str, dev, params0, k: int):
+    cfg = network_config(625, *FIRING, impl=impl)
+    eng = TNNEngine(cfg, [w.to(dev) for w in params0], n_slots=SLOTS, impl=impl,
+                    device=dev, superbatch_k=k, online_stdp=True,
+                    swap_every=SWAP_EVERY, seed=0)
+    eng.fit(*digits(FIT_IMAGES, seed=1))
+    return eng
+
+
+def online_path(impl: str, dev, params0, k: int = ONLINE_K, pipelined: bool = True):
+    """1,024 requests through an online engine (64 slots, swaps every 4
+    learning waves), counts from 0 just before the first submit and read
+    after the last retire; every published vote table is kept."""
+    eng = online_engine(impl, dev, params0, k)
+    imgs = digits(ONLINE_REQUESTS, seed=2)[0]
+    _sync(dev)
+    reset_counts()
+    for uid in range(ONLINE_REQUESTS):
+        eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
+    tables = {eng.version: eng.vote_table}
+    while eng.pending:
+        eng.poll() if pipelined else eng.step()
+        tables[eng.version] = eng.vote_table
+    _sync(dev)
+    counts = read_counts()
+    st = eng.stats()
+    return {"eng": eng, "counts": counts, "stats": st,
+            "map": {u: (r.result, r.version) for u, r in eng.done.items()},
+            "tables": {v: t.cpu() for v, t in tables.items()},
+            "state": convert.state_to_numpy(eng.learn_state)}
+
+
+def expected_online_launches(impl: str, waves: int, swaps: int) -> dict:
+    """Per online wave: fused 1 learn + 1 forward, pallas 4 column (2 layers
+    learning, 2 serving) + 2 STDP; 2 threefry either way. Per swap the
+    re-labelling forwards over the 256 fit images in 64-row chunks."""
+    relabel = FIT_IMAGES // SLOTS
+    want = dict(NO_LAUNCHES, threefry=2 * waves)
+    if impl == "fused":
+        want.update({"tnn_wave[learn]": waves, "tnn_wave[forward]": waves + swaps * relabel})
+    else:
+        want.update({"tnn_column": 4 * waves + 2 * swaps * relabel, "stdp_update": 2 * waves})
+    return want
+
+
+def _same_np_state(a, b, what: str) -> None:
+    for key in a["params"]:
+        if not (a["params"][key] == b["params"][key]).all():
+            raise AssertionError(f"{what}: shadow {key} differs")
+    if not ((a["rng"] == b["rng"]).all() and int(a["wave"]) == int(b["wave"])):
+        raise AssertionError(f"{what}: shadow key or wave differs")
+
+
+def traced_online(impl: str, dev, params0):
+    """One more online pass on the card under torch.profiler: device busy
+    time by kernel and the device's idle share of the wall time."""
+    eng = online_engine(impl, dev, params0, ONLINE_K)
+    imgs = digits(ONLINE_REQUESTS, seed=2)[0]
+    _sync(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for uid in range(ONLINE_REQUESTS):
+            eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
+        eng.run_until_done()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    card = on_card(events)
+    busy_us = sum(e.self_device_time_total for e in card)
+    if busy_us <= 0:
+        raise AssertionError(f"online {impl}: the traced pass shows no device time")
+    idle = 1 - busy_us / (1e6 * wall)
+    print(f"  online {impl} traced pass: wall {1e3 * wall:.3f} ms for {eng.stats().waves} "
+          f"waves and {eng.swaps} swaps; device busy {busy_us / 1e3:.3f} ms, idle share "
+          f"{idle:.3f}", flush=True)
+    top = sorted(card, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"    device {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:70]}")
+    return {"traced_wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": idle,
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top[:4]}}
+
+
+def online_phase(dev, params0):
+    """pallas (card) == fused (card) == CPU, K = 4 pipelined, and the fused
+    engine lock-step at K = 1: every uid's class id and version, the final
+    shadow state and each published vote table; the card's shadow equals 16
+    ``make_train_step`` calls on the same volleys; launches as the code
+    says."""
+    runs = {"pallas": online_path("pallas", dev, params0),
+            "fused": online_path("fused", dev, params0)}
+    t0 = time.perf_counter()
+    runs["cpu"] = online_path("fused", torch.device("cpu"), params0)
+    cpu_wall = time.perf_counter() - t0
+    runs["lockstep"] = online_path("fused", dev, params0, k=1, pipelined=False)
+    ref = runs["cpu"]
+    swaps = {"pallas": 4, "fused": 4, "cpu": 4, "lockstep": 3}
+    for name, r in runs.items():
+        eng = r["eng"]
+        if eng.swaps != swaps[name] or eng.stats().waves != ONLINE_WAVES:
+            raise AssertionError(f"online {name}: {eng.swaps} swaps, {eng.stats().waves} waves")
+        if name != "cpu":
+            want = expected_online_launches("pallas" if name == "pallas" else "fused",
+                                            ONLINE_WAVES, swaps[name])
+            if r["counts"] != want:
+                raise AssertionError(f"online {name} launches {r['counts']}, expected {want}")
+        if r["map"] != ref["map"]:
+            diff = [u for u in ref["map"] if r["map"][u] != ref["map"][u]]
+            raise AssertionError(f"online {name}: {len(diff)} uids differ in class id or "
+                                 f"version from the CPU's (first {diff[:5]})")
+        _same_np_state(r["state"], ref["state"], f"online {name} vs cpu")
+        for ver, vt in r["tables"].items():
+            if ver in ref["tables"] and not torch.equal(vt, ref["tables"][ver]):
+                raise AssertionError(f"online {name}: published v{ver} vote table differs")
+    if not all(float(vt.sum()) > 0 for vt in ref["tables"].values()):
+        raise AssertionError("online: a published vote table is all zero")
+    # the shadow against the trainer's step on the same volleys
+    cfg = network_config(625, *FIRING, impl="fused")
+    state = {"params": params_to_tree([w.to(dev).clone() for w in params0]),
+             **train_stream_start(t_random.PRNGKey(0))}
+    step = make_train_step(cfg)
+    eng = runs["fused"]["eng"]
+    imgs = digits(ONLINE_REQUESTS, seed=2)[0]
+    for w in range(ONLINE_WAVES):
+        state, _ = step(state, eng._encode(imgs[w * SLOTS:(w + 1) * SLOTS]))
+    _same_np_state(convert.state_to_numpy(state), ref["state"], "online shadow vs 16 train steps")
+    labels = digits(ONLINE_REQUESTS, seed=2)[1]
+    out = {}
+    for name, r in runs.items():
+        st, eng = r["stats"], r["eng"]
+        by_ver = {}
+        for ver, sv in eng.stats_by_version().items():
+            hits = [r["map"][u][0] == labels[u] for u in r["map"] if r["map"][u][1] == ver]
+            by_ver[ver] = {"requests": sv.requests, "waves": sv.waves,
+                           "p50_ms": sv.p50_ms, "p95_ms": sv.p95_ms,
+                           "accuracy": float(sum(hits) / len(hits))}
+        out[name] = {"waves_per_s": st.waves_per_s, "images_per_s": st.images_per_s,
+                     "p50_ms": st.p50_ms, "p95_ms": st.p95_ms, "wall_s": st.wall_s,
+                     "swaps": eng.swaps, "versions": sorted(by_ver),
+                     "launches": r["counts"], "by_version": by_ver}
+        print(f"  online {name}: {st.waves} waves, {eng.swaps} swaps, "
+              f"{st.waves_per_s:.1f} waves/s, {st.images_per_s:.1f} images/s, p50 "
+              f"{st.p50_ms:.3f} ms, p95 {st.p95_ms:.3f} ms; launches {r['counts']}", flush=True)
+        for ver, v in by_ver.items():
+            print(f"    v{ver}: {v['requests']} requests / {v['waves']} waves, p50 "
+                  f"{v['p50_ms']:.3f} ms, p95 {v['p95_ms']:.3f} ms, accuracy {v['accuracy']}")
+    out["cpu"]["phase_wall_s"] = cpu_wall
+    print(f"  pallas (card) == fused (card) == cpu == fused lock-step K=1: every uid's class "
+          f"id and version, shadow (wave {int(ref['state']['wave'])}) == 16 train steps, "
+          f"published vote tables v0..v{max(ref['tables'])} (sums "
+          f"{[float(t.sum()) for t in ref['tables'].values()]})", flush=True)
+    for impl in ("pallas", "fused"):
+        out[impl]["traced"] = traced_online(impl, dev, params0)
+    return out
+
+
+def online_ckpt_phase(dev, ckpt_a: str, final_a):
+    """Train phase A's wave-16 checkpoint served online (16 slots, fused):
+    the trainer's stream for waves 16-31 leaves the shadow at A's final
+    state (wave 32)."""
+    shutil.rmtree(ONLINE_CKPT_DIR, ignore_errors=True)
+    os.makedirs(ONLINE_CKPT_DIR)
+    shutil.copytree(os.path.join(ckpt_a, "step_00000016"),
+                    os.path.join(ONLINE_CKPT_DIR, "step_00000016"))
+    cfg = launcher_network_config(625, impl="fused")
+    stream = WaveStream(cfg, TRAIN_IMAGES, WAVE_BATCH, seed=1, device=dev)
+    label = (stream.images[:EVAL_IMAGES], stream.labels[:EVAL_IMAGES])
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = TNNEngine.from_checkpoint(ONLINE_CKPT_DIR, cfg, n_slots=WAVE_BATCH, impl="fused",
+                                    label_data=label, online_stdp=True, device=dev)
+    start = int(eng.learn_state["wave"])
+    for uid, row in enumerate(range(start * WAVE_BATCH, EPOCH_WAVES * WAVE_BATCH)):
+        eng.submit(ClassifyRequest(uid=uid, image=stream.images[row]))
+    eng.run_until_done()
+    _sync(dev)
+    counts, wall = read_counts(), time.perf_counter() - t0
+    waves = EPOCH_WAVES - start
+    want = dict(NO_LAUNCHES, threefry=2 * waves, **{
+        "tnn_wave[learn]": waves, "tnn_wave[forward]": waves + EVAL_IMAGES // WAVE_BATCH})
+    if start != 16 or counts != want:
+        raise AssertionError(f"online from a checkpoint: start {start}, launches {counts}, "
+                             f"expected {want}")
+    _same_np_state(convert.state_to_numpy(eng.learn_state), convert.state_to_numpy(final_a),
+                   "online from A's wave 16 vs A at wave 32")
+    print(f"  from A's step_00000016: {waves} online waves end at A's wave-32 state "
+          f"(weights, key, wave); wall {wall:.2f} s; launches {counts}", flush=True)
+    return {"start_wave": start, "final_wave": int(eng.learn_state["wave"]),
+            "wall_s": wall, "launches": counts}
+
+
+def loadgen_phase(dev):
+    """The port's loadgen, online (swaps every 4 learning waves) at
+    theta = (12, 3): closed loop over 1,024 requests, then an open loop of
+    2 s at half the images/s the closed loop measured, counts from 0 before
+    each. Gate: every request served, versions never decrease along the
+    retire order, launches as the engine's waves and swaps say."""
+    eng = t_loadgen.build_engine(sites=625, slots=SLOTS, impl="fused", online_stdp=True,
+                                 swap_every=SWAP_EVERY, thetas=FIRING, device=dev)
+    imgs, labs = t_loadgen.labelled_images(625, ONLINE_REQUESTS)
+    t_loadgen.run_closed_loop(eng, imgs, SLOTS)  # warm-up
+    eng.reset()
+
+    def check(n: int, what: str, swaps0: int):
+        _sync(dev)
+        counts, waves = read_counts(), eng.stats().waves
+        want = expected_online_launches("fused", waves, eng.swaps - swaps0)
+        if counts != want:
+            raise AssertionError(f"loadgen {what}: launches {counts}, expected {want}")
+        order = sorted(eng.done.values(), key=lambda r: (r.t_done, r.uid))
+        if len(eng.done) != n or any(r.result is None for r in order):
+            raise AssertionError(f"loadgen {what}: served {len(eng.done)} of {n}")
+        if any(a.version > b.version for a, b in zip(order, order[1:])):
+            raise AssertionError(f"loadgen {what}: a version decreased along the retire order")
+        ab = t_loadgen.ab_accuracy(eng.done, labs, window=256)
+        print(f"  loadgen {what}: {t_loadgen.fmt(eng.stats())}; {eng.swaps - swaps0} "
+              f"swaps, now v{eng.version}; ab (last 256) {ab}; launches {counts}", flush=True)
+        return {"ab": ab, "swaps": eng.swaps - swaps0, "launches": counts}
+
+    swaps0 = eng.swaps
+    reset_counts()
+    closed = t_loadgen.run_closed_loop(eng, imgs, ONLINE_REQUESTS)
+    closed_check = check(ONLINE_REQUESTS, "closed", swaps0)
+    eng.reset()
+    rate = closed.images_per_s / 2
+    arrivals = t_loadgen.poisson_arrivals(rate, 2.0, seed=0)
+    swaps0 = eng.swaps
+    reset_counts()
+    opened = t_loadgen.run_open_loop(eng, imgs, arrivals)
+    open_check = check(len(arrivals), f"open @ {rate:.1f}/s x 2 s ({len(arrivals)} "
+                       f"arrivals)", swaps0)
+
+    def nums(st):
+        return {"requests": st.requests, "waves": st.waves, "wall_s": st.wall_s,
+                "waves_per_s": st.waves_per_s, "images_per_s": st.images_per_s,
+                "p50_ms": st.p50_ms, "p95_ms": st.p95_ms, "occupancy": st.occupancy}
+
+    return {"closed": {**nums(closed), **closed_check},
+            "open": {**nums(opened), "rate": rate, **open_check}}
+
+
+def flagship_phase(dev):
+    """``repro_torch.launch.tnn_mnist`` with its defaults (theta = (12, 3),
+    60 waves of 16) and ``--impl fused`` on the card, counts from 0, then on
+    the CPU: equal weights, vote tables, centroids and both accuracies."""
+    reset_counts()
+    card = t_flagship.main(["--impl", "fused", "--device", "cuda"])
+    _sync(dev)
+    counts = read_counts()
+    t0 = time.perf_counter()
+    cpu = t_flagship.main(["--impl", "fused", "--device", "cpu"])
+    cpu_wall = time.perf_counter() - t0
+    want = dict(NO_LAUNCHES, threefry=120, **{"tnn_wave[learn]": 60, "tnn_wave[forward]": 2})
+    if counts != want:
+        raise AssertionError(f"flagship launches {counts}, expected {want}")
+    for l, (a, b) in enumerate(zip(card["params"], cpu["params"])):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"flagship: layer-{l} weights differ from the CPU's")
+    for key in ("vote_table", "centroids"):
+        if not torch.equal(card[key].cpu(), cpu[key]):
+            raise AssertionError(f"flagship: {key} differs from the CPU's")
+    for key in ("accuracy", "centroid_accuracy"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"flagship: {key} {card[key]} != CPU {cpu[key]}")
+    if not float(card["vote_table"].sum()) > 0:
+        raise AssertionError("flagship: the vote table is all zero")
+    print(f"  card == cpu: weights, vote table, centroids; vote accuracy "
+          f"{card['accuracy']}, centroid accuracy {card['centroid_accuracy']}; "
+          f"{card['ms_per_wave']:.3f} ms a wave on the card, "
+          f"{cpu['ms_per_wave']:.3f} on the CPU (cpu run {cpu_wall:.2f} s); launches "
+          f"{counts}", flush=True)
+    return {"accuracy": card["accuracy"], "centroid_accuracy": card["centroid_accuracy"],
+            "rails": card["rails"], "ms_per_wave": card["ms_per_wave"],
+            "cpu_ms_per_wave": cpu["ms_per_wave"], "launches": counts, "ppa": card["ppa"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1168,7 +1572,34 @@ def main() -> int:
     errs["fallback"], counts_fb = fallback_path(dev)
 
     phase("train at full width (main path of slice 5: launcher, trainer, checkpoints)")
-    train, counts_t = train_phase(dev)
+    train, counts_t, (ckpt_a, final_a) = train_phase(dev)
+
+    seconds = {}
+    t0 = time.perf_counter()
+    phase("serve at a firing theta = (12, 3): pallas (card), fused (card), CPU")
+    firing, params0 = firing_phase(dev)
+    seconds["firing"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase("serve online (learn while serving, K = 4, swaps every 4 waves) at theta = (12, 3)")
+    online = online_phase(dev, params0)
+    seconds["online"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase("serve from a checkpoint, online (train A's step_00000016, waves 16-31)")
+    online_ckpt = online_ckpt_phase(dev, ckpt_a, final_a)
+    seconds["online_ckpt"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase("loadgen: closed loop, then open loop at half its images/s (online)")
+    loadgen = loadgen_phase(dev)
+    seconds["loadgen"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase("flagship: repro_torch.launch.tnn_mnist --impl fused, card and CPU")
+    flagship = flagship_phase(dev)
+    seconds["flagship"] = time.perf_counter() - t0
+    print(f"  slice-6 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -1222,6 +1653,12 @@ def main() -> int:
                   "served_spikes": rep_p.served_spikes},
         "fallback_launches": counts_fb,
         "train": train,
+        "firing": firing,
+        "online": online,
+        "online_ckpt": online_ckpt,
+        "loadgen": loadgen,
+        "flagship": flagship,
+        "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,
         "shapes": shapes,

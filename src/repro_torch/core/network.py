@@ -15,6 +15,11 @@ bit ``jax.random``): ``init_train_state`` -> ``make_train_step`` /
 threefry kernel draws on the card. The reference's counter-form
 ``network_train_step`` exists so data shards can sum their counters; the
 port is unsharded, and ``network_train_wave`` is the same step bit for bit.
+
+Learning while serving (``make_online_step`` / ``make_online_superbatch_step``)
+runs that train step on a shadow state and classifies the same volley under
+the published weights. The readout is the site vote (``classify``) or the
+winner-bit centroid (``build_centroids`` / ``classify_centroid``).
 """
 from __future__ import annotations
 
@@ -175,6 +180,20 @@ def network_forward(
     return outs
 
 
+def network_forward_superbatch(
+    x_k: torch.Tensor, params: Sequence[torch.Tensor], cfg: NetworkConfig
+) -> List[torch.Tensor]:
+    """K forward gamma waves, wave ``i`` on ``x_k[i]`` ((K, B, C, p)): K
+    :func:`network_forward` calls, as the reference's ``lax.scan``, stacked
+    per layer ((K, B, C, q_i) each). Under ``impl="fused"`` each wave is one
+    wave-kernel launch."""
+    outs: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
+    for x in x_k:
+        for acc, z in zip(outs, network_forward(x, params, cfg)):
+            acc.append(z)
+    return [torch.stack(acc) for acc in outs]
+
+
 def network_train_wave(
     x: torch.Tensor,
     params: Sequence[torch.Tensor],
@@ -322,10 +341,66 @@ def init_train_state(key, cfg: NetworkConfig, device="cuda") -> TrainState:
     ``init_train_state``: ``k_params, k_stream = split(key)``, weights from
     ``k_params`` on ``device``, the stream key ``k_stream`` and wave 0 on the
     host."""
-    k_params, k_stream = _random.split(key)
+    k_params = _random.split(key)[0]
     return {"params": params_to_tree(init_network(k_params, cfg, device)),
-            "rng": k_stream,
+            **train_stream_start(key)}
+
+
+def train_stream_start(key) -> TrainState:
+    """The key and wave counter :func:`init_train_state` starts from
+    (``split(key)[1]`` and wave 0), without drawing its weights."""
+    return {"rng": _random.split(key)[1],
             "wave": torch.tensor(0, dtype=torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Learning while serving: classify under published weights, learn on a shadow
+# ---------------------------------------------------------------------------
+
+OnlineStep = Callable[[Sequence[torch.Tensor], TrainState, torch.Tensor],
+                      Tuple[TrainState, torch.Tensor]]
+
+
+def _require_sum(cfg: NetworkConfig) -> None:
+    for l in cfg.layers:
+        l.column.stdp.require_sum()
+
+
+def make_online_step(cfg: NetworkConfig) -> OnlineStep:
+    """The learn-while-serving step ``(serve_params, state, x) -> (state,
+    z_serve)``, as the reference's ``make_online_step`` (unsharded).
+
+    The shadow half is :func:`make_train_step`'s body on ``state`` (the same
+    key split, the weights updated in place, the wave counter + 1), so N
+    online waves equal N trainer steps on the same volleys. The served half
+    is :func:`network_forward` under ``serve_params``, which must not alias
+    the state's weights: the next wave would update them under requests
+    still in flight. Pad rows (spike time T) fire nothing and learn
+    nothing."""
+    _require_sum(cfg)
+    train = make_train_step(cfg)
+
+    def step(serve_params, state: TrainState, x: torch.Tensor):
+        state, _ = train(state, x)
+        return state, network_forward(x, list(serve_params), cfg)[-1]
+
+    return step
+
+
+def make_online_superbatch_step(cfg: NetworkConfig) -> OnlineStep:
+    """The K-wave form of :func:`make_online_step`: ``(serve_params, state,
+    x_k) -> (state, z_k)`` with ``x_k`` (K, B, C, p). The shadow learns
+    through :func:`make_superbatch_step` (the :func:`superbatch_keys`
+    pre-split, wave counter + K), so it equals K online steps; the K waves
+    are classified under the one ``serve_params``."""
+    _require_sum(cfg)
+    train = make_superbatch_step(cfg)
+
+    def step(serve_params, state: TrainState, x_k: torch.Tensor):
+        state, _ = train(state, x_k)
+        return state, network_forward_superbatch(x_k, list(serve_params), cfg)[-1]
+
+    return step
 
 
 def params_to_tree(params: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -435,3 +510,29 @@ def vote_sums(z_last: torch.Tensor, vote_table: torch.Tensor, T: int,
         votes = (F.one_hot(lab, n_classes).to(torch.float32)
                  * fired[..., None])
     return votes.sum(dim=1)
+
+
+def winner_bits(z_last: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, S, q) post-WTA spike times -> (B, S*q) bool winner map: one bit
+    per neuron per gamma wave, the code the readout hardware sees."""
+    return (z_last.to(torch.int32) < T).reshape(z_last.shape[0], -1)
+
+
+def build_centroids(z_last: torch.Tensor, labels: torch.Tensor, n_classes: int,
+                    T: int) -> torch.Tensor:
+    """Per-class mean winner-bit vectors (n_classes, S*q) float32: whole
+    counts divided by the class size (at least 1), as the reference's."""
+    bits = winner_bits(z_last, T).to(torch.float32)
+    onehot = F.one_hot(labels.long(), n_classes).to(torch.float32)  # (B, C)
+    sums = torch.einsum("bf,bc->cf", bits, onehot)
+    counts = onehot.sum(dim=0).clamp_min(1.0)
+    return sums / counts[:, None]
+
+
+def classify_centroid(z_last: torch.Tensor, centroids: torch.Tensor,
+                      T: int) -> torch.Tensor:
+    """Nearest centroid on the winner bits (squared distance; ties go to the
+    lowest class id). Returns (B,) class ids (int64)."""
+    bits = winner_bits(z_last, T).to(torch.float32)
+    d = (bits[:, None, :] - centroids[None]).square().sum(dim=-1)
+    return d.argmin(dim=-1)

@@ -20,12 +20,23 @@ every class id equal the reference launcher's. ``--from-ckpt DIR`` serves a
 training checkpoint instead (either package's), with no warm-up.
 ``--device cpu`` runs the same sequence on the plain PyTorch path, to the
 same bits.
+
+``--superbatch-k K`` lets one dispatch drain up to K waves of backlog.
+``--online-stdp`` learns while serving: every served wave also steps a
+shadow state, and every ``--swap-every`` learning waves the engine
+re-labels and hot-swaps the published weights and vote table; the report
+adds per-version stats. With ``--from-ckpt`` the shadow continues the
+checkpoint's key and wave, and swap checkpoints go back to that directory:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tnn-mnist \
+        --sites 16 --slots 8 --requests 64 --online-stdp --swap-every 4 \
+        --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +65,8 @@ class ServeReport:
     accuracy: float
     warmup_spikes: List[List[int]]        # per warm-up wave, spikes per layer
     served_spikes: List[int]              # spikes per layer over the first wave of requests
+    versions: Dict[int, int]              # uid -> published version it was classified under
+    version_stats: Dict[int, ServeStats]  # the serve record split by version
 
 
 def spike_counts(zs: Sequence[torch.Tensor], T: int) -> List[int]:
@@ -61,32 +74,49 @@ def spike_counts(zs: Sequence[torch.Tensor], T: int) -> List[int]:
     return [int((z.to(torch.int32) < T).sum()) for z in zs]
 
 
+def warm_up(cfg, lab_imgs: np.ndarray, waves: int, device
+            ) -> Tuple[List[torch.Tensor], List[List[int]]]:
+    """The launcher's weights: ``init_network(PRNGKey(0))``, then ``waves``
+    unsupervised STDP waves on the first 16 encoded labelled images, wave
+    ``i`` on the second half of the ``i``-th split of the chain from
+    ``PRNGKey(1)``. Returns the weights and each wave's spikes per layer."""
+    T = cfg.layers[0].column.wave.T
+    params = init_network(_random.PRNGKey(0), cfg, device)
+    x = encode_images(torch.from_numpy(np.ascontiguousarray(lab_imgs)).to(device), cfg)
+    key, spikes = _random.PRNGKey(1), []
+    for _ in range(waves):
+        key, k = _random.split(key)
+        zs, params = network_train_wave(x[:WARMUP_ROWS], params, cfg, k)
+        spikes.append(spike_counts(zs, T))
+    return params, spikes
+
+
 def serve_tnn(args: argparse.Namespace) -> ServeReport:
     device = resolve_device(args.device)
     cfg = launcher_network_config(args.sites, depth=args.depth,
                                   impl=args.impl, packed=args.packed)
     T = cfg.layers[0].column.wave.T
+    # the swap cadence has a default, but the engine refuses one without a
+    # shadow state: forward it only when learning is on
+    swap_every = args.swap_every if args.online_stdp else 0
+    online = dict(superbatch_k=args.superbatch_k, online_stdp=args.online_stdp,
+                  swap_every=swap_every)
     print(f"serving tnn-mnist ({cfg.n_neurons:,} neurons, impl={args.impl}) "
           f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     lab_imgs, lab_labs = digits(max(128, 4 * args.slots), seed=1)
     lab_imgs = crop_field(lab_imgs, args.sites)
 
-    warmup_spikes = []
+    warmup_spikes: List[List[int]] = []
     if args.from_ckpt:
         eng = TNNEngine.from_checkpoint(
             args.from_ckpt, cfg, n_slots=args.slots, impl=args.impl,
-            label_data=(lab_imgs, lab_labs), device=device)
-        print(f"warm-started from {args.from_ckpt}")
+            label_data=(lab_imgs, lab_labs), device=device, **online)
+        print(f"warm-started from {args.from_ckpt}" + (
+            f" at wave {int(eng.learn_state['wave'])}" if args.online_stdp else ""))
     else:
-        params = init_network(_random.PRNGKey(0), cfg, device)
-        x = encode_images(torch.from_numpy(lab_imgs).to(device), cfg)
-        key = _random.PRNGKey(1)
-        for _ in range(args.train_waves):  # short unsupervised warm-up
-            key, k = _random.split(key)
-            zs, params = network_train_wave(x[:WARMUP_ROWS], params, cfg, k)
-            warmup_spikes.append(spike_counts(zs, T))
+        params, warmup_spikes = warm_up(cfg, lab_imgs, args.train_waves, device)
         eng = TNNEngine(cfg, params, n_slots=args.slots, impl=args.impl,
-                        device=device)
+                        device=device, **online)
         eng.fit(lab_imgs, lab_labs)
     params = eng.params
 
@@ -110,10 +140,21 @@ def serve_tnn(args: argparse.Namespace) -> ServeReport:
           f"p95 {st.p95_ms:.3f} ms  occupancy {st.occupancy:.0%}")
     print(f"[spikes] warm-up waves (per layer): {warmup_spikes}; first "
           f"served wave (per layer): {served_spikes}")
+    versions = {u: done[u].version for u in sorted(done)}
+    by_version = eng.stats_by_version()
+    if args.online_stdp:
+        print(f"[online-stdp] learned to wave {int(eng.learn_state['wave'])}, "
+              f"{eng.swaps} hot swap(s), now serving v{eng.version}")
+        for ver, sv in by_version.items():
+            hits = [results[u] == test_labs[u] for u in results if versions[u] == ver]
+            print(f"  v{ver}: {sv.requests} requests / {sv.waves} waves  "
+                  f"p50 {sv.p50_ms:.3f} ms  p95 {sv.p95_ms:.3f} ms  "
+                  f"accuracy {float(np.mean(hits)):.1%}")
     return ServeReport(params=params, vote_table=eng.vote_table,
                        results=results, labels=test_labs, stats=st,
                        accuracy=acc, warmup_spikes=warmup_spikes,
-                       served_spikes=served_spikes)
+                       served_spikes=served_spikes, versions=versions,
+                       version_stats=by_version)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -143,6 +184,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--from-ckpt", default=None, metavar="DIR",
                     help="serve the latest training checkpoint in DIR "
                          "(weights and vote table; no warm-up waves)")
+    ap.add_argument("--superbatch-k", type=int, default=1,
+                    help="most gamma waves one dispatch drains when the "
+                         "backlog is deeper than --slots")
+    ap.add_argument("--online-stdp", action="store_true",
+                    help="learn while serving: every served wave also steps "
+                         "a shadow state, hot-swapped in every --swap-every "
+                         "learning waves")
+    ap.add_argument("--swap-every", type=int, default=8,
+                    help="learning waves between automatic hot swaps with "
+                         "--online-stdp (0 = never automatically)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 

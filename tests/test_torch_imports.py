@@ -18,7 +18,9 @@ from repro_torch.core.column import init_weights
 from repro_torch.core.layer import init_layer, layer_uniforms
 from repro_torch.core.network import init_network
 from repro_torch.kernels import threefry
+from repro_torch.launch import loadgen as launch_loadgen
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import tnn_mnist as launch_flagship
 from repro_torch.launch import train as launch_train
 from repro_torch.random import PRNGKey
 from repro_torch.serve.tnn_engine import TNNEngine
@@ -35,6 +37,8 @@ def _modules():
 def test_port_imports_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.tnn_wave" in mods and len(mods) >= 20
+    for new in ("launch.loadgen", "launch.tnn_mnist", "core.hwmodel", "core.macros"):
+        assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {ROOT!r})
@@ -83,6 +87,10 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
     assert launch_train.parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         threefry.layer_uniforms(key, 4, (2, 1, 3, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_loadgen.main(["--sites", "4", "--requests", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_flagship.main(["--train", "16", "--test", "8", "--waves", "1"])
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

@@ -251,3 +251,53 @@ def test_params_tree_and_convert():
         convert.params_from_numpy({"layer_00": params[0]}, tcfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         t_network.params_from_tree({"layer_00": pt[0], "layer_01": pt[0]}, tcfg)
+
+
+def test_vote_sum_near_ties_against_the_jitted_reference():
+    """The soft-vote sums at 16 sites (``default_thetas`` = (12, 3), both
+    layers fire), the port's ``vote_sums`` against the reference's
+    ``jnp.sum(votes, axis=1)`` of ``classify``'s own expression under
+    ``jax.jit``, on 256 unfiltered requests: the two sum in their own
+    orders, so a row whose two best sums lie closer than the largest
+    difference may take another class id. Such rows are counted: 70 here,
+    every one an exact tie (69 requests where layer 2 stays silent and all
+    sums are 0, one tie of two non-zero sums; the largest difference is
+    4.8e-7, the smallest non-zero margin 0.014). Every other row's class id
+    is asserted equal."""
+    jcfg = j_tnn_mnist.launcher_network_config(16, impl="direct")
+    tcfg = t_tnn_mnist.launcher_network_config(16, impl="direct")
+    assert tcfg.layers[0].column.theta == 12 and tcfg.layers[1].column.theta == 3
+    params = [np.asarray(w) for w in j_network.init_network(jax.random.PRNGKey(0), jcfg)]
+    lab, labels = t_digits(32, seed=1)
+    test = t_digits(256, seed=2)[0]
+    lab, test = (np.ascontiguousarray(t_tnn_mnist.crop_field(a, 16)) for a in (lab, test))
+
+    @jax.jit
+    def reference(lab_x, test_x, ps):
+        vt = j_network.build_vote_table(
+            j_network.network_forward(lab_x, list(ps), jcfg)[-1], jnp.asarray(labels), 10, T)
+        winner, fired = j_network.winner_map(
+            j_network.network_forward(test_x, list(ps), jcfg)[-1], T)
+        post = vt / jnp.maximum(vt.sum(axis=-1, keepdims=True), 1.0)
+        votes = post[jnp.arange(vt.shape[0])[None, :], winner] * fired[..., None]
+        return vt, jnp.sum(votes, axis=1)
+
+    vt_j, sums_j = (np.asarray(a) for a in reference(
+        j_network.encode_images(jnp.asarray(lab), jcfg),
+        j_network.encode_images(jnp.asarray(test), jcfg), tuple(params)))
+    pt = convert.params_from_numpy(params, tcfg, device="cpu")
+    fwd = lambda x: t_network.network_forward(  # noqa: E731
+        t_network.encode_images(torch.from_numpy(x), tcfg), pt, tcfg)[-1]
+    vt_t = t_network.build_vote_table(fwd(lab), torch.from_numpy(labels), 10, T)
+    _eq(vt_j, vt_t)
+    assert float(vt_t.sum()) > 0
+    z = fwd(test)
+    sums_t = t_network.vote_sums(z, vt_t, T).numpy()
+    diff = float(np.abs(sums_t - sums_j).max())
+    top2 = np.sort(sums_j, axis=-1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= diff
+    assert 0 < diff < 1e-5
+    assert int(near.sum()) == 70 and int((top2[near, 1] == 0).sum()) == 69
+    assert (top2[near, 1] == top2[near, 0]).all()  # all exact ties
+    cls_j = sums_j.argmax(-1)
+    np.testing.assert_array_equal(cls_j[~near], t_network.classify(z, vt_t, T).numpy()[~near])
