@@ -18,7 +18,8 @@ Phases, each of which fails the run on error:
             (tnn_column), STDP update (stdp_update) and the standalone WTA
             (wta); then the threefry STDP uniforms (threefry: the
             known-answer vector, both prototype layers at B = 16, B = 1, 7
-            and 1000, one column, odd widths, columns that cross a block),
+            and 1000, one column, odd widths, columns that cross a block; the
+            two-level entry at B = 1, 16 and 1000, one column, odd widths),
             and the host draw + copy it replaced, timed beside it.
 4. serve    the launcher at full width (625 sites, 64 slots, 512 requests,
             4 STDP warm-up waves) on the card, with every kernel launch
@@ -61,7 +62,18 @@ Phases, each of which fails the run on error:
 11. flagship ``repro_torch.launch.tnn_mnist`` with its defaults, --impl fused,
             on the card and the CPU: equal weights, vote table, centroids and
             both accuracies; the PPA tables.
-12. report  one JSON line with the serve, train, slice-6 and shape numbers,
+12. modes   a "seq" and a "gauss" learning wave at 625 sites, B = 16, theta
+            (24, 8) and (12, 3): pallas and fused on the card equal the CPU's
+            plain path (spike times and weights, bit for bit), and launch
+            tnn_column and threefry, never tnn_wave or stdp_update; the
+            card's normals equal the CPU's (1,240,000 draws).
+13. cells   the reference's dry-run cells through ``launch.dryrun``'s
+            ``run_tnn_cell`` at 625 sites, nothing cut: tnn_infer_64k
+            (pallas, fused) and tnn_train_8k (pallas, fused, fused+gauss),
+            each timed (one wave, CUDA events) with its Roofline.report() and
+            peak memory, launches counted, and held against the plain version
+            on the card chunk by chunk, bit for bit.
+14. report  one JSON line with the serve, train, slice-6/7 and shape numbers,
             one with every kernel's numbers, the card's nvidia-smi line, then
             the result line.
 
@@ -69,6 +81,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -90,46 +103,35 @@ from repro_torch.configs.tnn_mnist import (  # noqa: E402
 from repro_torch.core.column import ColumnConfig  # noqa: E402
 from repro_torch.core.layer import LayerConfig  # noqa: E402
 from repro_torch.core.network import (  # noqa: E402
-    NetworkConfig, _uses_fused_wave, forward_all_padded, init_train_state,
-    make_superbatch_step, make_train_step, network_forward, network_train_wave,
-    params_to_tree, train_stream_start, vote_sums,
+    NetworkConfig, _uses_fused_wave, encode_images, forward_all_padded,
+    init_network, init_train_state, make_superbatch_step, make_train_step,
+    network_forward, network_train_wave, params_to_tree, prototype_config,
+    train_stream_start, vote_sums,
 )
-from repro_torch.core.stdp import default_stabilize_table  # noqa: E402
+from repro_torch.core.stdp import (  # noqa: E402
+    apply_net, default_stabilize_table, gauss_update, stdp_net_from_uniforms,
+)
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
 from repro_torch.kernels.padding import network_plan  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import loadgen as t_loadgen  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import tnn_mnist as t_flagship  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
+from repro_torch.roofline import analysis as RL  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
+from repro_torch.utils.tracing import (  # noqa: E402
+    kernel_launch_count, read_counts, reset_counts,
+)
 
-# H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s;
-# the int8 tensor-core rate, at which the column and wave kernels run the
-# ramp product; the float32 rate outside the tensor cores, used for the
-# STDP and WTA kernels' compares and selects; and the INT32 rate, 64 INT32
-# lanes per SM x 132 SMs x 1.98 GHz (the boost clock), for the threefry
-# kernel's shifts and logic. Each operation is priced at the rate of the
-# unit that does it, so the bound stays a lower bound.
-HBM_BYTES_PER_S = 3.35e12
-TENSOR_INT8_OPS_PER_S = 1979e12
-SCALAR_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Operations per threefry uniform that only the INT32 pipe issues: the
-# rotate (SHF) and the xor (LOP3) of each of the 20 rounds, and the xor,
-# shift and or that build the float. Its 32 adds (20 in the rounds, 10 key
-# injections, 2 initial) are left out on purpose, a looser floor: an add
-# issues either as IADD3 on the INT32 pipe or as IMAD on the FMA-heavy
-# pipe, which has 64 lanes per SM too and runs beside it, and 32 adds a
-# float fit there under the 43 the INT32 pipe must take. (The build phase
-# prints the SASS mix: nvcc puts about 6 adds a float on IADD3, about 48
-# INT32-pipe operations a float in all.)
-THREEFRY_INT_OPS = 20 * 2 + 3
-
+# Every kernel's bytes and operations, and the H100 SXM peaks they are priced
+# at (NVIDIA's data sheet, dense, 700 W), are repro_torch.roofline.analysis's:
+# the dry run reads the same counts.
 KERNELS = ("tnn_wave", "tnn_column", "stdp_update", "wta", "threefry")
 SERVE_ARGS = ["--arch", "tnn-mnist", "--sites", "625", "--slots", "64",
               "--requests", "512", "--train-waves", "4"]
@@ -194,20 +196,6 @@ def _require_exact(name: str, err: int) -> int:
         raise AssertionError(f"{name}: kernel disagrees with the plain version "
                              f"(max_abs_err={err})")
     return err
-
-
-def reset_counts() -> None:
-    tnn_wave.LAUNCHES.reset()
-    for mod in (tnn_column, stdp_update, wta, threefry):
-        mod.LAUNCHES.reset()
-
-
-def read_counts() -> dict:
-    return {"tnn_wave[forward]": tnn_wave.LAUNCHES.forward,
-            "tnn_wave[learn]": tnn_wave.LAUNCHES.learn,
-            "tnn_column": tnn_column.LAUNCHES.n,
-            "stdp_update": stdp_update.LAUNCHES.n, "wta": wta.LAUNCHES.n,
-            "threefry": threefry.LAUNCHES.n}
 
 
 # ---------------------------------------------------------------------------
@@ -287,47 +275,11 @@ def in_turns(kernel, plain, iters: int, plain_iters: int = 5):
             (plain_a, ms_a, ms_b, plain_b, events))
 
 
-def column_ops(x, w, theta: int) -> int:
-    """The direct ramp form's min + add per synapse for each tick up to the
-    neuron's crossing (all T ticks when it never crosses), from the data."""
-    z_pre = tnn_column.column_forward_layer_plain(x, w, theta=theta, T=T, wta=False)
-    ticks = torch.where(z_pre < T, z_pre.to(torch.int64) + 1, T)
-    return 2 * x.shape[2] * int(ticks.sum())
-
-
-def forward_work(cfg, x, ws, plan):
-    """(bytes, operations) one forward wave needs: every input read once and
-    every output written once; the ramp work counted from this run's data."""
-    B, C, p1 = x.shape
-    nbytes = x.numel() + sum(w.numel() for w in ws) + sum(B * C * q for q in plan.qs)
-    ops, v = 0, x
-    for w, theta in zip(ws, plan.thetas):
-        ops += column_ops(v, w, theta)
-        v = tnn_wave._layer_plain(v, w, theta, cfg.layers[0].column.wave)
-    return nbytes, ops
-
-
-def ops_ms(ramp_ops: float = 0, scalar_ops: float = 0, int_ops: float = 0) -> float:
-    """Least ms for the operations: the ramp work (column_ops, counted in
-    the direct form whatever implements it) at the int8 tensor-core rate the
-    column and wave kernels run it at, 32-bit integer hashing at the INT32
-    rate, the rest at the scalar (float32) rate."""
-    return 1e3 * (ramp_ops / TENSOR_INT8_OPS_PER_S + scalar_ops / SCALAR_OPS_PER_S
-                  + int_ops / INT32_OPS_PER_S)
-
-
-def bound(nbytes: int, t_ops: float):
-    """(bound ms, what bounds it, bytes-only ms) for ``nbytes`` and an
-    operations-only time from :func:`ops_ms`."""
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            t_bytes)
-
-
-def _timing(name, B, kernel_ms, plain_ms, readings, nbytes, ramp_ops=0,
-            scalar_ops=0, int_ops=0):
-    ops, t_ops = ramp_ops + scalar_ops + int_ops, ops_ms(ramp_ops, scalar_ops, int_ops)
-    bms, by, bytes_ms = bound(nbytes, t_ops)
+def _timing(name, B, kernel_ms, plain_ms, readings, work: RL.Work):
+    """One kernel's timings beside its bound (``work``'s, from
+    repro_torch.roofline.analysis)."""
+    nbytes, ops, t_ops = work.bytes, work.ops, work.ops_ms
+    bms, by, bytes_ms = work.bound()
     print(f"  {name} B={B}: kernel {readings[1]:.4f}/{readings[2]:.4f} ms on the "
           f"card ({readings[4]:.4f} ms per call by CUDA events), plain "
           f"{readings[0]:.3f}/{readings[3]:.3f} ms, bound {bms:.5f} ms ({by}; "
@@ -353,15 +305,11 @@ def measure(cfg, dev):
             k = lambda: tnn_wave.wave_train(x, ws, pairs, plan=plan)  # noqa: E731
             p = lambda: tnn_wave.wave_train_plain(x, ws, pairs, plan=plan)  # noqa: E731
         ms, plain_ms, readings = in_turns(k, p, iters)
-        nbytes, ramp_ops = forward_work(cfg, x, ws, plan)
-        scalar_ops = 0
-        if half == "learn":
-            pq = sum(p_ * q_ for p_, q_ in zip(plan.ps, plan.qs))
-            C = plan.n_cols
-            nbytes += 8 * C * B * pq + 4 * C * pq  # uniforms in, nets out
-            scalar_ops = 2 * C * B * pq            # the two Bernoulli compares
-        out[half] = _timing(half, B, ms, plain_ms, readings, nbytes, ramp_ops,
-                            scalar_ops)
+        work = RL.forward_work(x, ws, plan.thetas, plan.T)
+        if half == "learn":  # uniforms in, nets out, two Bernoulli compares
+            work = work + RL.learn_epilogue_work(
+                plan.n_cols, B, [p_ * q_ for p_, q_ in zip(plan.ps, plan.qs)])
+        out[half] = _timing(half, B, ms, plain_ms, readings, work)
     return out
 
 
@@ -624,9 +572,8 @@ def measure_layer_kernels(dev):
         k = lambda: tnn_column.column_forward_layer(xl, wl, theta=th, T=T, wta=True)  # noqa: E731
         p = lambda: tnn_column.column_forward_layer_plain(xl, wl, theta=th, T=T, wta=True)  # noqa: E731
         ms, plain_ms, readings = in_turns(k, p, 200)
-        nbytes = xl.numel() + wl.numel() + 4 * xl.shape[0] * wl.shape[0] * wl.shape[2]
-        per.append(_timing(f"column layer {l}", 64, ms, plain_ms, readings, nbytes,
-                           ramp_ops=column_ops(xl, wl, th)))
+        per.append(_timing(f"column layer {l}", 64, ms, plain_ms, readings,
+                           RL.column_work(xl, wl, th, T)))
     out["tnn_column"] = _mean_timing(per)
     # STDP update
     per = []
@@ -637,19 +584,15 @@ def measure_layer_kernels(dev):
         ms, plain_ms, readings = in_turns(k, p, 100)
         C, pp, q = w.shape
         B = xl.shape[0]
-        # w, x, z and the two uniform tensors in; the int32 result out; two
-        # Bernoulli compares per (row, synapse)
-        nbytes = C * pp * q + B * C * pp + B * C * q + 8 * C * B * pp * q + 4 * C * pp * q
-        per.append(_timing(f"stdp layer {l}", B, ms, plain_ms, readings, nbytes,
-                           scalar_ops=2 * C * B * pp * q))
+        per.append(_timing(f"stdp layer {l}", B, ms, plain_ms, readings,
+                           RL.stdp_work(C, B, pp, q)))
     out["stdp_update"] = _mean_timing(per)
     # WTA
     z = torch.randint(0, T + 1, (64 * 625, 12), generator=g, dtype=torch.int32).to(dev)
     ms, plain_ms, readings = in_turns(lambda: wta.wta(z, T=T),
                                       lambda: wta.wta_plain(z, T=T), 200)
-    # z in and out as int32; key, running min and select per element
     out["wta"] = _timing("wta (64*625, 12)", z.shape[0], ms, plain_ms, readings,
-                         8 * z.numel(), scalar_ops=3 * z.numel())
+                         RL.wta_work(z.numel()))
     return out
 
 
@@ -658,7 +601,7 @@ def _mean_timing(per):
     n = len(per)
     nbytes, ops = sum(t["bytes"] for t in per) / n, sum(t["ops"] for t in per) / n
     t_ops = sum(t["ops_ms"] for t in per) / n
-    bms, by, bytes_ms = bound(nbytes, t_ops)
+    bms, by, bytes_ms = RL.bound(nbytes, t_ops)
     return dict(B=per[0]["B"], ms=sum(t["ms"] for t in per) / n,
                 plain_ms=sum(t["plain_ms"] for t in per) / n,
                 events_ms=sum(t["events_ms"] for t in per) / n, bound_ms=bms,
@@ -867,6 +810,36 @@ def check_threefrys(dev) -> float:
             ("70,000 columns of 2 (more columns than the grid's y)",
              t_random.PRNGKey(10), (70_000, 1, 1, 1))):
         err = max(err, check_threefry_one(name, key, C, B, p, q, dev))
+    return max(err, check_nested_threefrys(dev))
+
+
+def check_nested_threefrys(dev) -> float:
+    """The two-level entry (the "seq" mode's per-image draws: row (c, b) from
+    split(split(key, C)[c], B)[b]) against its plain version on the card,
+    bit for bit: the prototype's layers at B = 1, 16 and 1000, one column,
+    odd widths, and more rows than the grid's y."""
+    err = 0.0
+    key = t_random.PRNGKey(21)
+    for name, (C, B, p, q) in (
+            ("layer 1 B=16", (625, 16, 32, 12)),
+            ("layer 2 B=16", (625, 16, 12, 10)),
+            ("layer 1 B=1", (625, 1, 32, 12)),
+            ("layer 2 B=1000, 8 sites", (8, 1000, 12, 10)),
+            ("one column B=16", (1, 16, 32, 12)),
+            ("odd widths 11x9 B=7", (48, 7, 11, 9)),
+            ("odd widths 3x3 B=1000, one column", (1, 1000, 3, 3)),
+            ("70,000 rows of 2 (more rows than the grid's y)", (70, 1000, 1, 1))):
+        uk = threefry.nested_uniforms(key, C, B, (2, p, q), device=dev)
+        up = threefry.nested_uniforms_plain(key, C, B, (2, p, q), device=dev)
+        torch.cuda.synchronize()
+        same = torch.equal(uk.view(torch.int32), up.view(torch.int32))
+        e = float((uk - up).abs().max())
+        print(f"  threefry nested {name}: ({C}, {B}, 2, {p}, {q}), bits equal "
+              f"{same}, max_abs_err={e}", flush=True)
+        if not same or e:
+            raise AssertionError(f"threefry nested {name}: kernel disagrees with "
+                                 f"the plain version (max_abs_err={e})")
+        err = max(err, e)
     return err
 
 
@@ -875,7 +848,7 @@ def measure_threefry(dev):
     learning wave at B = 16, 625 sites. A wave launches each layer once, so
     the row's ms, plain ms and bound are the mean over the two launches and
     twice the ms is one wave's worth. Bytes: the floats written (the key is
-    two kernel arguments); operations: THREEFRY_INT_OPS per float at the
+    two kernel arguments); operations: RL.THREEFRY_INT_OPS per float at the
     INT32 rate."""
     key = t_random.PRNGKey(11)
     per = []
@@ -886,7 +859,7 @@ def measure_threefry(dev):
         ms, plain_ms, readings = in_turns(k, pl, 200)
         n = 625 * 2 * WAVE_BATCH * p * q
         per.append(_timing(f"threefry layer {l}", WAVE_BATCH, ms, plain_ms, readings,
-                           4 * n, int_ops=THREEFRY_INT_OPS * n))
+                           RL.threefry_work(n)))
     return _mean_timing(per)
 
 
@@ -1460,6 +1433,265 @@ def flagship_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# The "seq" and "gauss" STDP modes and the reference's production cells
+# (port slice 7)
+# ---------------------------------------------------------------------------
+
+MODES_THETAS = ((24, 8), (12, 3))   # the served theta; one where layer 2 fires
+MODES_BATCH = 16
+MODE_LAUNCHES = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 2,
+                 "stdp_update": 0, "wta": 0, "threefry": 2}
+
+
+def with_mode(cfg: NetworkConfig, mode: str, impl: str) -> NetworkConfig:
+    layers = tuple(dataclasses.replace(l, column=dataclasses.replace(
+        l.column, impl=impl,
+        stdp=dataclasses.replace(l.column.stdp, batch_reduce=mode)))
+        for l in cfg.layers)
+    return dataclasses.replace(cfg, layers=layers)
+
+
+def check_normals(dev) -> int:
+    """The card's normals (the threefry kernel's unit floats through
+    repro_torch.random's erf_inv on the card) against the CPU's plain
+    normals of the same keys, bit for bit: a gauss layer-1 draw and one of
+    1,000,000 (the tails)."""
+    n_diff = 0
+    for name, key, (C, p, q) in (("layer 1", t_random.PRNGKey(31), (625, 32, 12)),
+                                 ("1000 x 1000", t_random.PRNGKey(32), (1000, 40, 25))):
+        g_card = t_random.unit_to_normal(threefry.layer_uniforms(key, C, (p, q), device=dev))
+        g_cpu = t_random.normal(t_random.split(key, C), (p, q))
+        d = int((g_card.cpu().view(torch.int32) != g_cpu.view(torch.int32)).sum())
+        print(f"  normals {name}: {g_cpu.numel()} draws, min {float(g_cpu.min()):.4f} "
+              f"max {float(g_cpu.max()):.4f}, card != cpu in {d}", flush=True)
+        if d:
+            raise AssertionError(f"normals {name}: {d} card draws differ from the CPU's")
+        n_diff += d
+    return n_diff
+
+
+def modes_phase(dev):
+    """A "seq" and a "gauss" learning wave at 625 sites, B = 16, theta (24, 8)
+    and (12, 3): pallas and fused on the card (counts from 0 for each wave)
+    and the plain path on the CPU give the same spike times and weights bit
+    for bit; each card wave launches tnn_column and threefry twice (the
+    "seq" draws through the two-level entry) and no tnn_wave or
+    stdp_update."""
+    imgs = digits(MODES_BATCH, seed=3)[0]
+    out = {}
+    for th in MODES_THETAS:
+        base = network_config(625, *th)
+        x = encode_images(torch.from_numpy(imgs), base)
+        params = init_network(t_random.PRNGKey(0), base, "cpu")
+        key = t_random.split(t_random.PRNGKey(7))[1]
+        for mode in ("seq", "gauss"):
+            t0 = time.perf_counter()
+            zs_c, ws_c = network_train_wave(x, params, with_mode(base, mode, "fused"), key)
+            cpu_s = time.perf_counter() - t0
+            row = {"cpu_s": cpu_s,
+                   "spikes": [int((z < T).sum()) for z in zs_c],
+                   "weights_moved": [int((a != b).sum()) for a, b in zip(ws_c, params)]}
+            for impl in ("pallas", "fused"):
+                cfg = with_mode(base, mode, impl)
+                counts, (zs, ws) = kernel_launch_count(
+                    network_train_wave, x.to(dev), [w.to(dev) for w in params], cfg, key)
+                torch.cuda.synchronize()
+                err = max(_max_err(a.cpu(), b) for a, b in
+                          list(zip(zs, zs_c)) + list(zip(ws, ws_c)))
+                nested = threefry.LAUNCHES.nested
+                print(f"  theta={th} {mode} {impl}: spikes/layer {row['spikes']}, "
+                      f"weights moved {row['weights_moved']}, card vs cpu "
+                      f"max_abs_err={err}; launches {counts} (nested {nested}); "
+                      f"cpu {cpu_s:.2f} s", flush=True)
+                _require_exact(f"{mode} {impl} theta={th}", err)
+                if counts != MODE_LAUNCHES or nested != (2 if mode == "seq" else 0):
+                    raise AssertionError(f"{mode} {impl}: launches {counts} (nested "
+                                         f"{nested}), expected {MODE_LAUNCHES}")
+                row[impl] = {"launches": counts, "nested": nested, "max_abs_err": err}
+            out[f"{mode} theta={th}"] = row
+    out["normals_differing"] = check_normals(dev)
+    out["nested_threefry"] = measure_nested_threefry(dev)
+    return out
+
+
+def measure_nested_threefry(dev):
+    """The two-level threefry entry at the "seq" waves' shapes (625 sites,
+    B = 16, both layers): device ms per call under torch.profiler beside
+    its bound (the floats it writes, the INT32 operations of their
+    hashes)."""
+    key = t_random.PRNGKey(41)
+    out = {}
+    for l, (p, q) in enumerate(((32, 12), (12, 10)), start=1):
+        ms = device_ms(lambda: threefry.nested_uniforms(key, 625, MODES_BATCH, (2, p, q),
+                                                        device=dev), 100)
+        bms, by, _ = RL.threefry_work(625 * MODES_BATCH * 2 * p * q).bound()
+        print(f"  threefry nested layer {l} (625, {MODES_BATCH}, 2, {p}, {q}): "
+              f"{ms:.4f} ms on the card, bound {bms:.5f} ms ({by})", flush=True)
+        out[f"layer {l}"] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+    return out
+
+
+CELL_CHUNK = 16   # columns per plain chunk: a few GB of planes at B = 8,192
+
+
+def _plain_chunks(C: int):
+    return [(c, min(C, c + CELL_CHUNK)) for c in range(0, C, CELL_CHUNK)]
+
+
+def check_infer_cell(runs, dev) -> int:
+    """Every run's spike times against the plain forward on the card, chunk
+    by chunk (all columns and rows), bit for bit."""
+    x, params = runs[0][1]["x"], runs[0][1]["params"]
+    cfg = prototype_config(sites=x.shape[1], theta1=dryrun.THETA[0],
+                           theta2=dryrun.THETA[1])
+    B, rows = x.shape[0], 8192
+    err = 0
+    for c0, c1 in _plain_chunks(x.shape[1]):
+        for r0 in range(0, B, rows):
+            v = x[r0:r0 + rows, c0:c1]
+            for l, (w, lcfg) in enumerate(zip(params, cfg.layers)):
+                v = tnn_column.column_forward_layer_plain(
+                    v, w[c0:c1], theta=lcfg.column.theta, T=T, wta=True).to(SPIKE_DTYPE)
+                for _, out in runs:
+                    err = max(err, _max_err(out["zs"][l][r0:r0 + rows, c0:c1], v))
+    return _require_exact("tnn_infer_64k", err)
+
+
+def check_train_cell(runs, gauss: bool, dev) -> int:
+    """Every run's spike times and new weights against the plain wave on the
+    card, chunk by chunk (all columns and rows): the plain column forward;
+    "sum": the plain draw (held against the threefry kernel's own draw of
+    the layer) and the plain counters; "gauss": the plain normals and the
+    plain update."""
+    ref = runs[0][1]
+    x, params, key = ref["x"], ref["params"], ref["key"]
+    C, B = x.shape[1], x.shape[0]
+    cfg = dryrun._tnn_variant_cfg(prototype_config(
+        sites=C, theta1=dryrun.THETA[0], theta2=dryrun.THETA[1]), "direct", gauss)
+    err = 0
+    v = x
+    for l, (w, lcfg, k) in enumerate(zip(params, cfg.layers, t_random.split(key, 2))):
+        spec, stdp = lcfg.column.wave, lcfg.column.stdp
+        p, q = lcfg.column.p, lcfg.column.q
+        col_keys = t_random.split(k, C)
+        u_kernel = (None if gauss else
+                    threefry.layer_uniforms(k, C, (2, B, p, q), device=dev))
+        z_all = torch.empty((B, C, q), dtype=SPIKE_DTYPE, device=dev)
+        for c0, c1 in _plain_chunks(C):
+            vc, wc = v[:, c0:c1], w[c0:c1]
+            z = tnn_column.column_forward_layer_plain(
+                vc, wc, theta=lcfg.column.theta, T=T, wta=True).to(SPIKE_DTYPE)
+            z_all[:, c0:c1] = z
+            if gauss:
+                g = t_random.normal(col_keys[c0:c1], (p, q), dev)
+                w_new = gauss_update(wc, vc.transpose(0, 1), z.transpose(0, 1), g,
+                                     spec, stdp)
+            else:
+                u = t_random.uniform(col_keys[c0:c1], (2, B, p, q), dev)
+                err = max(err, int((u.view(torch.int32)
+                                    != u_kernel[c0:c1].view(torch.int32)).sum()))
+                net = stdp_net_from_uniforms(wc, vc.transpose(0, 1), z.transpose(0, 1),
+                                             u[:, 0], u[:, 1], spec, stdp)
+                w_new = apply_net(wc, net, spec)
+            for _, out in runs:
+                err = max(err, _max_err(out["zs"][l][:, c0:c1], z),
+                          _max_err(out["new_params"][l][c0:c1], w_new))
+        del u_kernel
+        v = z_all
+    return _require_exact(f"tnn_train_8k{'+gauss' if gauss else ''}", err)
+
+
+def trace_cell_wave(tag: str, wave, repeats: int = 3, attempts: int = 3) -> dict:
+    """``repeats`` more waves of a cell under torch.profiler: per wave, the
+    wall time, the card's busy time by kernel (the card's own events) and
+    the idle share. The profiler misses a trace's first kernels, so each
+    trace waits 50 ms and opens with spin kernels, left out of the sums.
+    A trace that still records no device event is taken again, up to
+    ``attempts`` times; after that the waves are timed with CUDA events
+    and the breakdown is recorded as not measured."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.05)
+            for _ in range(3):
+                torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                wave()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / repeats
+        card = [e for e in on_card(prof.key_averages()) if "spin" not in e.key]
+        busy_us = sum(e.self_device_time_total for e in card) / repeats
+        if busy_us > 0:
+            break
+        print(f"    trace {attempt} of {tag} recorded no device event", flush=True)
+    else:
+        ms = time_cuda(wave, repeats)
+        print(f"    {tag}: {ms:.3f} ms a wave by CUDA events; the breakdown by "
+              f"kernel is not measured (no trace recorded a device event)", flush=True)
+        return {"wall_ms": ms, "device_busy_ms": None, "device_idle_share": None,
+                "top_device_ms": "not measured"}
+    top = sorted(card, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"    traced ({repeats} waves): per wave wall {1e3 * wall:.3f} ms, device "
+          f"busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / (1e6 * wall):.3f}",
+          flush=True)
+    for e in top:
+        print(f"    device {e.self_device_time_total / 1e3 / repeats:9.3f} ms a wave  "
+              f"x{e.count // repeats:<4d} {e.key[:70]}", flush=True)
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / (1e6 * wall),
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 / repeats
+                              for e in top}}
+
+
+def cells_phase(dev):
+    """The reference's production cells at 625 sites, nothing cut, through
+    the dry run's ``run_tnn_cell`` (warm-up wave, then one timed wave with
+    counts from 0): tnn_infer_64k under pallas and fused, tnn_train_8k under
+    pallas, fused and fused+gauss; each run's outputs held against the plain
+    version on the card, chunk by chunk, bit for bit. Prints each run's
+    Roofline.report(), peak memory and wave ms."""
+    want = {
+        ("tnn_infer_64k", "pallas", False): {"tnn_column": 2},
+        ("tnn_infer_64k", "fused", False): {"tnn_wave[forward]": 1},
+        ("tnn_train_8k", "pallas", False): {"tnn_column": 2, "stdp_update": 2,
+                                             "threefry": 2},
+        ("tnn_train_8k", "fused", False): {"tnn_wave[learn]": 1, "threefry": 2},
+        ("tnn_train_8k", "fused", True): {"tnn_column": 2, "threefry": 2},
+    }
+    results, runs = {}, {}
+    for (cell, impl, gauss), launches in want.items():
+        outputs = {}
+        res = dryrun.run_tnn_cell(cell, impl=impl, gauss=gauss, device=dev,
+                                  outputs=outputs)
+        tag = f"{cell}{dryrun.variant_suffix(impl, gauss)}"
+        if res["status"] != "ok":
+            raise AssertionError(f"{tag}: {res.get('error', res['status'])}\n"
+                                 f"{res.get('traceback', '')}")
+        expected = dict(NO_LAUNCHES, **launches)
+        if res["launches"] != expected:
+            raise AssertionError(f"{tag}: launches {res['launches']}, expected {expected}")
+        print(f"  {tag}: wave {res['wave_ms']:.3f} ms, kernels' bound "
+              f"{res['kernel_bound_ms']:.3f} ms, peak {res['memory']['max_memory_allocated']:,.0f} "
+              f"bytes, spikes/layer {res['spikes']}; roofline {json.dumps(res['roofline'])}",
+              flush=True)
+        results[tag] = {k: res[k] for k in ("wave_ms", "compile_s", "kernel_bound_ms",
+                                              "kernels", "roofline", "memory",
+                                              "launches", "spikes")}
+        results[tag]["traced"] = trace_cell_wave(tag, outputs["wave"])
+        runs.setdefault((cell, gauss), []).append((impl, outputs))
+    t0 = time.perf_counter()
+    errs = {"tnn_infer_64k": check_infer_cell(runs[("tnn_infer_64k", False)], dev),
+            "tnn_train_8k": check_train_cell(runs[("tnn_train_8k", False)], False, dev),
+            "tnn_train_8k_gauss": check_train_cell(runs[("tnn_train_8k", True)], True,
+                                                   dev)}
+    print(f"  every cell == its plain version on the card, all columns and rows "
+          f"({time.perf_counter() - t0:.1f} s): {errs}", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1599,7 +1831,17 @@ def main() -> int:
     phase("flagship: repro_torch.launch.tnn_mnist --impl fused, card and CPU")
     flagship = flagship_phase(dev)
     seconds["flagship"] = time.perf_counter() - t0
-    print(f"  slice-6 phase seconds: {seconds}", flush=True)
+
+    t0 = time.perf_counter()
+    phase("modes: seq and gauss learning waves at 625 sites, pallas and fused (card) vs CPU")
+    modes = modes_phase(dev)
+    seconds["modes"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    phase("cells: tnn_infer_64k and tnn_train_8k (the reference's dry-run cells) on the card")
+    cells = cells_phase(dev)
+    seconds["cells"] = time.perf_counter() - t0
+    print(f"  slice-6 and slice-7 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -1658,6 +1900,8 @@ def main() -> int:
         "online_ckpt": online_ckpt,
         "loadgen": loadgen,
         "flagship": flagship,
+        "modes": modes,
+        "cells": cells,
         "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,

@@ -8,6 +8,7 @@ from repro_torch.core.stdp import (
     default_stabilize_table,
     stdp_cases,
     stdp_net_from_uniforms,
+    stdp_update,
 )
 from repro_torch.core.column import (
     ColumnConfig,

@@ -26,7 +26,9 @@ from repro_torch.core.column import (
     ColumnConfig, body_potential, column_forward_matmul, crossing_time,
     wta_inhibit,
 )
-from repro_torch.core.stdp import apply_net, stdp_net_from_uniforms
+from repro_torch.core.stdp import (
+    apply_net, gauss_update, seq_update, stdp_net_from_uniforms,
+)
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as _kops
@@ -107,7 +109,7 @@ def layer_stdp_net(
     :func:`repro_torch.core.stdp.apply_net`. ``"pallas"``/``"fused"`` run
     the STDP kernel in net mode, the others the plain counter form."""
     spec, stdp = cfg.column.wave, cfg.column.stdp
-    stdp.require_sum()
+    stdp.require_counter_form()
     if cfg.column.impl in KERNEL_IMPLS:
         return _stdp_kernel(x, z, w, cfg, u_up, u_dn, out="net")
     return stdp_net_from_uniforms(
@@ -135,16 +137,25 @@ def layer_step(
     """One gamma wave for the whole layer: x (B, n_cols, p) -> (post-WTA
     spike times (B, n_cols, q) uint8, new int8 weights).
 
-    Learning draws the layer's (n_cols, 2, B, p, q) STDP uniforms from the
-    key ``rng`` with :func:`layer_uniforms`, as the reference does, unless
-    they are given as ``uniforms``. ``"pallas"``/``"fused"``
-    apply the update in the STDP kernel (``out="weights"``); the others
-    apply the plain counters with ``apply_net``. Both are bit-exact with the
-    reference's "sum" update on the same uniforms."""
+    The STDP update follows ``cfg.column.stdp.batch_reduce``. "sum" draws
+    the layer's (n_cols, 2, B, p, q) uniforms from the key ``rng`` with
+    :func:`layer_uniforms`, as the reference does, unless they are given as
+    ``uniforms``; ``"pallas"``/``"fused"`` apply the update in the STDP
+    kernel (``out="weights"``), the others apply the plain counters with
+    ``apply_net``. "seq" and "gauss" draw their own randomness from ``rng``
+    (:func:`layer_mode_update`). Every backend is bit-exact with the
+    reference's update on the same key."""
     z = layer_forward(x, w, cfg)
     if not learn:
         return z, w
-    cfg.column.stdp.require_sum()
+    if cfg.column.stdp.batch_reduce != "sum":
+        if uniforms is not None:
+            raise ValueError(
+                f"uniforms= are the 'sum' form's draws; batch_reduce="
+                f"{cfg.column.stdp.batch_reduce!r} draws its own from rng")
+        if rng is None:
+            raise ValueError("learning requires rng")
+        return z, layer_mode_update(x, z, w, cfg, rng)
     if uniforms is None:
         if rng is None:
             raise ValueError("learning requires rng or uniforms")
@@ -155,6 +166,30 @@ def layer_step(
         return z, w_new.to(torch.int8)
     return z, apply_net(w, layer_stdp_net(x, z, w, cfg, u_up, u_dn),
                         cfg.column.wave)
+
+
+def layer_mode_update(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                      cfg: LayerConfig, rng) -> torch.Tensor:
+    """The "seq" or "gauss" update of a whole layer (x (B, C, p), z (B, C,
+    q), w (C, p, q)) from the layer key, as the reference's per-column
+    ``stdp_update`` over ``split(rng, n_cols)``, on every backend in the
+    mode's plain form (no STDP kernel takes these modes). The draws run on
+    x's device: "seq" one (C, B, 2, p, q) two-level draw (column c, image
+    b from ``split(split(rng, C)[c], B)[b]``), "gauss" one (C, p, q) draw
+    turned into normals; on the card each is one ``kernels.threefry``
+    launch."""
+    spec, stdp = cfg.column.wave, cfg.column.stdp
+    C, p, q = w.shape
+    xc, zc = x.transpose(0, 1), z.transpose(0, 1)
+    if stdp.batch_reduce == "seq":
+        u = _kthreefry.nested_uniforms(rng, C, x.shape[0], (2, p, q),
+                                       device=x.device)
+        return seq_update(w, xc, zc, u, spec, stdp)
+    if stdp.batch_reduce == "gauss":
+        g = _random.unit_to_normal(
+            _kthreefry.layer_uniforms(rng, C, (p, q), device=x.device))
+        return gauss_update(w, xc, zc, g, spec, stdp)
+    raise ValueError(f"unknown batch_reduce: {stdp.batch_reduce}")
 
 
 # ---------------------------------------------------------------------------

@@ -205,28 +205,45 @@ def network_train_wave(
     """One unsupervised gamma wave through the whole network (all layers
     learn). Returns (per-layer post-WTA spike times, new per-layer weights).
 
-    The STDP uniforms are one (C, 2, B, p, q) float32 tensor per layer,
-    drawn as the reference draws them: layer ``i`` from
-    ``split(rng, n_layers)[i]`` with ``layer_uniforms`` (on the card, by the
-    threefry kernel), unless they are given as ``uniforms``."""
-    for l in cfg.layers:
-        l.column.stdp.require_sum()
-    B = x.shape[0]
-    if uniforms is None:
-        if rng is None:
-            raise ValueError("network_train_wave needs rng or uniforms")
-        uniforms = _draw_uniforms(rng, cfg, B, x.device)
-    elif len(uniforms) != len(cfg.layers):
-        raise ValueError(f"{len(uniforms)} uniform tensors for "
-                         f"{len(cfg.layers)} layers")
-    if _uses_fused_wave(cfg):
+    Layer ``i`` learns from ``split(rng, n_layers)[i]``, as in the
+    reference. Under "sum" its STDP uniforms are one (C, 2, B, p, q)
+    float32 tensor drawn with ``layer_uniforms`` (on the card, by the
+    threefry kernel), unless they are given as ``uniforms``; a network of
+    "fused" layers runs the whole wave as one wave-kernel launch. A network
+    with a "seq" or "gauss" layer runs layer by layer, each layer's forward
+    on its own backend and its update in the mode's plain form
+    (``layer_step``), so no wave kernel launches, as in the reference; its
+    layers draw their own randomness, and ``uniforms`` is refused."""
+    sum_only = _sum_only(cfg)
+    if uniforms is not None:
+        if not sum_only:
+            raise ValueError(
+                "uniforms= are the 'sum' form's draws; a network with a "
+                "'seq' or 'gauss' layer draws its own from rng")
+        if len(uniforms) != len(cfg.layers):
+            raise ValueError(f"{len(uniforms)} uniform tensors for "
+                             f"{len(cfg.layers)} layers")
+    elif rng is None:
+        raise ValueError("network_train_wave needs rng or uniforms")
+    if sum_only and _uses_fused_wave(cfg):
+        if uniforms is None:
+            uniforms = _draw_uniforms(rng, cfg, x.shape[0], x.device)
         return _fused_train(x, params, cfg, uniforms)
+    keys = (_random.split(rng, len(cfg.layers)) if uniforms is None
+            else [None] * len(cfg.layers))
     outs, new_params = [], []
-    for w, lcfg, u in zip(params, cfg.layers, uniforms):
-        x, w = layer_step(x, w, lcfg, uniforms=u)
+    for i, (w, lcfg, k) in enumerate(zip(params, cfg.layers, keys)):
+        u = None if uniforms is None else uniforms[i]
+        x, w = layer_step(x, w, lcfg, k, uniforms=u)
         new_params.append(w)
         outs.append(x)
     return outs, new_params
+
+
+def _sum_only(cfg: NetworkConfig) -> bool:
+    """Every layer takes the batched "sum" STDP (the wave kernel's
+    epilogue implements only that form)."""
+    return all(l.column.stdp.batch_reduce == "sum" for l in cfg.layers)
 
 
 def _draw_uniforms(rng, cfg: NetworkConfig, B: int, device) -> List[torch.Tensor]:
@@ -273,7 +290,10 @@ def network_train_superbatch(
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K consecutive learning waves, wave ``i`` on ``(x_k[i], keys_k[i])``:
     K :func:`network_train_wave` calls, as the reference's ``lax.scan``.
-    Returns (per-layer z stacks ((K, B, C, q_i) each), final weights)."""
+    Returns (per-layer z stacks ((K, B, C, q_i) each), final weights).
+    Only the "sum" form: the reference's superbatch runs the counter form."""
+    for l in cfg.layers:
+        l.column.stdp.require_counter_form()
     params = list(params)
     outs: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
     for x, key in zip(x_k, keys_k):
@@ -304,6 +324,7 @@ def make_train_step(cfg: NetworkConfig) -> TrainStep:
     split(state["rng"])``, the wave runs on ``sub``. The weights are updated
     in place (the reference donates the state), so callers keep only the
     returned state. ``z`` is the last layer's post-WTA spike times."""
+    _require_sum(cfg, "make_train_step")
 
     def step(state: TrainState, x: torch.Tensor):
         params = params_from_tree(state["params"], cfg)
@@ -323,6 +344,7 @@ def make_superbatch_step(cfg: NetworkConfig) -> TrainStep:
     :func:`superbatch_keys`, so the result equals K :func:`make_train_step`
     calls bit for bit; the weights are updated in place and the wave counter
     advances by K. ``z_k`` stacks the last layer's spike times per wave."""
+    _require_sum(cfg, "make_superbatch_step")
 
     def step(state: TrainState, x_k: torch.Tensor):
         k = x_k.shape[0]
@@ -361,9 +383,10 @@ OnlineStep = Callable[[Sequence[torch.Tensor], TrainState, torch.Tensor],
                       Tuple[TrainState, torch.Tensor]]
 
 
-def _require_sum(cfg: NetworkConfig) -> None:
+def _require_sum(cfg: NetworkConfig, what: str) -> None:
+    """The reference's refusal of "seq"/"gauss" by the step factories."""
     for l in cfg.layers:
-        l.column.stdp.require_sum()
+        l.column.stdp.require_sum(what)
 
 
 def make_online_step(cfg: NetworkConfig) -> OnlineStep:
@@ -377,7 +400,7 @@ def make_online_step(cfg: NetworkConfig) -> OnlineStep:
     the state's weights: the next wave would update them under requests
     still in flight. Pad rows (spike time T) fire nothing and learn
     nothing."""
-    _require_sum(cfg)
+    _require_sum(cfg, "make_online_step")
     train = make_train_step(cfg)
 
     def step(serve_params, state: TrainState, x: torch.Tensor):
@@ -393,7 +416,7 @@ def make_online_superbatch_step(cfg: NetworkConfig) -> OnlineStep:
     through :func:`make_superbatch_step` (the :func:`superbatch_keys`
     pre-split, wave counter + K), so it equals K online steps; the K waves
     are classified under the one ``serve_params``."""
-    _require_sum(cfg)
+    _require_sum(cfg, "make_online_superbatch_step")
     train = make_superbatch_step(cfg)
 
     def step(serve_params, state: TrainState, x_k: torch.Tensor):

@@ -15,6 +15,13 @@
 // for j in [0, n): each column has its own counter from 0, as the vmap over
 // the column keys gives, not one counter over the whole (C, 2, B, p, q).
 //
+// A second entry draws two split levels in one launch, the "seq" STDP
+// mode's per-image uniforms (the reference's stdp_update, batch_reduce
+// "seq": split(column_key, B)[b], then uniform(image_key, (2, p, q))):
+//   img_key(c, b) = threefry2x32(col_key(c), (0, b))  (split(col_key(c), B)[b])
+//   out[(c * B + b) * n + j] = the float of j under img_key(c, b)
+// each (column, image) row with its own counter from 0.
+//
 // Bound on this card (H100 SXM): integer issue, not bytes. One threefry call
 // per float: 20 rounds of (add, rotate, xor), 5 key injections of two adds,
 // 2 initial adds, then xor, shift and or. The 43 rotates, xors, shift and or
@@ -63,6 +70,29 @@ __device__ __forceinline__ float tnn_unit_float(uint32_t bits) {
   return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }
 
+// One thread's 4 consecutive floats j0 .. j0 + 3 (< n) of the row keyed
+// (k0, k1), written at out[base ..]: 4 hashes in flight, one 16-byte store
+// where the floats are 16-byte aligned.
+__device__ __forceinline__ void tnn_draw4(float* __restrict__ out, long long base,
+                                          long long j0, long long n,
+                                          uint32_t k0, uint32_t k1) {
+  float v[TNN_TF_PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < TNN_TF_PER_THREAD; ++e) {
+    const unsigned long long j = (unsigned long long)(j0 + e);
+    uint32_t a = (uint32_t)(j >> 32), b = (uint32_t)j;
+    tnn_threefry2x32(k0, k1, a, b);
+    v[e] = tnn_unit_float(a ^ b);
+  }
+  if (j0 + TNN_TF_PER_THREAD <= n && (base & 3) == 0) {
+    *reinterpret_cast<float4*>(out + base) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < TNN_TF_PER_THREAD; ++e)
+      if (j0 + e < n) out[base + e] = v[e];
+  }
+}
+
 __global__ void __launch_bounds__(TNN_TF_MAX_THREADS)
 tnn_threefry_uniform_kernel(float* __restrict__ out, uint32_t key0,
                             uint32_t key1, int n_cols, long long n) {
@@ -79,23 +109,34 @@ tnn_threefry_uniform_kernel(float* __restrict__ out, uint32_t key0,
     }
     __syncthreads();
     if (j0 >= n) continue;
-    const uint32_t c0 = col_key[0], c1 = col_key[1];
-    float v[TNN_TF_PER_THREAD];
-#pragma unroll
-    for (int e = 0; e < TNN_TF_PER_THREAD; ++e) {
-      const unsigned long long j = (unsigned long long)(j0 + e);
-      uint32_t a = (uint32_t)(j >> 32), b = (uint32_t)j;
-      tnn_threefry2x32(c0, c1, a, b);
-      v[e] = tnn_unit_float(a ^ b);
+    tnn_draw4(out, (long long)c * n + j0, j0, n, col_key[0], col_key[1]);
+  }
+}
+
+// The two-level draw: grid (chunks of a row, rows), a row (c, b) for each
+// column c < n_cols and image b < n_rows, walked by blockIdx.y with stride
+// gridDim.y; a block's thread 0 derives the row's key (two hashes) once.
+__global__ void __launch_bounds__(TNN_TF_MAX_THREADS)
+tnn_threefry_nested_kernel(float* __restrict__ out, uint32_t key0,
+                           uint32_t key1, int n_cols, int n_rows, long long n) {
+  __shared__ uint32_t row_key[2];
+  const long long j0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * TNN_TF_PER_THREAD;
+  const long long rows = (long long)n_cols * n_rows;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    __syncthreads();  // the previous row's key is no longer read
+    if (threadIdx.x == 0) {
+      const long long c = r / n_rows;
+      uint32_t a = 0u, b = (uint32_t)c;
+      tnn_threefry2x32(key0, key1, a, b);          // split(key, C)[c]
+      uint32_t a2 = 0u, b2 = (uint32_t)(r - c * n_rows);
+      tnn_threefry2x32(a, b, a2, b2);              // split(col key, B)[b]
+      row_key[0] = a2;
+      row_key[1] = b2;
     }
-    const long long base = (long long)c * n + j0;
-    if (j0 + TNN_TF_PER_THREAD <= n && (base & 3) == 0) {
-      *reinterpret_cast<float4*>(out + base) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < TNN_TF_PER_THREAD; ++e)
-        if (j0 + e < n) out[base + e] = v[e];
-    }
+    __syncthreads();
+    if (j0 >= n) continue;
+    tnn_draw4(out, r * n + j0, j0, n, row_key[0], row_key[1]);
   }
 }
 
@@ -131,6 +172,25 @@ int tnn_threefry_uniform_launch(float* out, unsigned key0, unsigned key1,
   const dim3 grid((unsigned)chunks, (unsigned)(n_cols < 65535 ? n_cols : 65535));
   tnn_threefry_uniform_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       out, key0, key1, n_cols, n);
+  return (int)cudaGetLastError();
+}
+
+// Enqueue the (n_cols, n_rows, n) float32 two-level draw of the layer key
+// (key0, key1) into `out` (contiguous, 16-byte aligned) on `stream`;
+// returns cudaGetLastError().
+int tnn_threefry_nested_launch(float* out, unsigned key0, unsigned key1,
+                               int n_cols, int n_rows, long long n, int threads,
+                               void* stream) {
+  if (n_cols < 1 || n_rows < 1 || n < 1 || threads < 32 || threads % 32 ||
+      threads > TNN_TF_MAX_THREADS || ((unsigned long long)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)threads * TNN_TF_PER_THREAD;
+  const long long chunks = (n + per_block - 1) / per_block;
+  const long long rows = (long long)n_cols * n_rows;
+  if (chunks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)chunks, (unsigned)(rows < 65535 ? rows : 65535));
+  tnn_threefry_nested_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      out, key0, key1, n_cols, n_rows, n);
   return (int)cudaGetLastError();
 }
 

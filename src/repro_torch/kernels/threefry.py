@@ -4,15 +4,23 @@ of shape (2, B, p, q) vmapped over ``split(layer_key, n_cols)``.
 
     layer_uniforms(key, n_cols, (2, B, p, q), device=...)  ->  (n_cols, 2, B, p, q) float32
 
+and, one split level deeper, the "seq" STDP mode's per-image draws
+(``uniform(split(split(key, n_cols)[c], n_rows)[b], shape)``):
+
+    nested_uniforms(key, n_cols, n_rows, (2, p, q), device=...)  ->  (n_cols, n_rows, 2, p, q) float32
+
 The key is host data (two uint32 words, ``repro_torch.random``), so the
-draw's device is named by ``device``. The CPU runs the plain version
-:func:`layer_uniforms_plain` (``random.uniform`` over ``random.split``). The
-card launches the hand-written Hopper kernel ``csrc/threefry.cu`` or raises;
-nothing falls back to a host draw. ``LAUNCHES`` counts the kernel launches.
+draw's device is named by ``device``. The CPU runs the plain versions
+:func:`layer_uniforms_plain` and :func:`nested_uniforms_plain`
+(``random.uniform`` over ``random.split``). The card launches the
+hand-written Hopper kernel ``csrc/threefry.cu`` or raises; nothing falls
+back to a host draw. ``LAUNCHES`` counts the kernel launches of both
+entries (``LAUNCHES.nested`` those of the second).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Sequence
@@ -25,11 +33,27 @@ from repro_torch.kernels import _build
 
 THREADS = 256  # per block (TNN_TF_MAX_THREADS at most); 4 floats a thread
 
-LAUNCHES = _build.LaunchCounter()
+
+
+@dataclasses.dataclass
+class LaunchCount(_build.LaunchCounter):
+    """Launches of the threefry kernel: ``n`` of both entries, ``nested``
+    of the two-level one."""
+
+    nested: int = 0
+
+    def reset(self) -> None:
+        self.n = self.nested = 0
+
+
+LAUNCHES = LaunchCount()
 
 # tnn_threefry_uniform_launch(out, key0, key1, n_cols, n, threads, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# tnn_threefry_nested_launch(out, key0, key1, n_cols, n_rows, n, threads, stream)
+NESTED_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 # tnn_threefry_hash_launch(x0, x1, y0, y1, key0, key1, n, stream)
 HASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_uint, ctypes.c_uint,
                                          ctypes.c_longlong, ctypes.c_void_p]
@@ -40,6 +64,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("threefry")
     lib.tnn_threefry_uniform_launch.argtypes = LAUNCH_ARGTYPES
     lib.tnn_threefry_uniform_launch.restype = ctypes.c_int
+    lib.tnn_threefry_nested_launch.argtypes = NESTED_ARGTYPES
+    lib.tnn_threefry_nested_launch.restype = ctypes.c_int
     lib.tnn_threefry_hash_launch.argtypes = HASH_ARGTYPES
     lib.tnn_threefry_hash_launch.restype = ctypes.c_int
     lib.tnn_threefry_error_string.argtypes = [ctypes.c_int]
@@ -70,6 +96,41 @@ def _uniforms_cuda(key, n_cols: int, shape, device: torch.device) -> torch.Tenso
                   out.data_ptr(), k0, k1, n_cols, n, THREADS)
     LAUNCHES.n += 1
     return out
+
+
+def nested_uniforms_plain(key, n_cols: int, n_rows: int, shape: Sequence[int],
+                          device="cpu") -> torch.Tensor:
+    """Plain version of :func:`nested_uniforms`, computed on ``device``."""
+    keys = _random.split(_random.split(key, n_cols), n_rows)  # (C, B, 2)
+    return _random.uniform(keys, tuple(shape), device)
+
+
+def _nested_cuda(key, n_cols: int, n_rows: int, shape, device: torch.device
+                 ) -> torch.Tensor:
+    k0, k1 = _random.key_words(key)
+    out = torch.empty((n_cols, n_rows, *shape), dtype=torch.float32, device=device)
+    n = math.prod(shape)
+    if n_cols < 1 or n_rows < 1 or n == 0:
+        return out
+    lib = _lib()
+    _build.launch("threefry nested", lib.tnn_threefry_nested_launch,
+                  lib.tnn_threefry_error_string, device,
+                  out.data_ptr(), k0, k1, n_cols, n_rows, n, THREADS)
+    LAUNCHES.n += 1
+    LAUNCHES.nested += 1
+    return out
+
+
+def nested_uniforms(key, n_cols: int, n_rows: int, shape: Sequence[int], *,
+                    device="cuda") -> torch.Tensor:
+    """(n_cols, n_rows, *shape) float32 uniforms in [0, 1): row (c, b) is
+    ``jax.random.uniform(split(split(key, n_cols)[c], n_rows)[b], shape)``.
+    One kernel launch on the card."""
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    if dev.type == "cpu":
+        return nested_uniforms_plain(key, n_cols, n_rows, shape, dev)
+    return _nested_cuda(key, int(n_cols), int(n_rows), shape, dev)
 
 
 def hash_pairs(key, x0: torch.Tensor, x1: torch.Tensor):

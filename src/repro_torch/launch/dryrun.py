@@ -1,0 +1,329 @@
+"""The TNN half of the reference's dry run, on one card: the paper's
+2-layer prototype at the reference's production cells.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tnn-mnist \
+        --out build/dryrun
+
+For each cell (``tnn_train_8k``: one learning wave of 8,192 images;
+``tnn_infer_64k``: one forward of 65,536) and variant (``--impl`` and, for
+the learning wave, the "gauss" STDP mode), where the reference lowers and
+compiles the step for a 256-chip pod, this runs it on the card at 625
+sites and the reference's theta (20, 6): weights from
+``init_network(PRNGKey(0))``, a (B, 625, 32) uint8 volley drawn from seed
+0, the wave key ``split(PRNGKey(0))[1]``; one warm-up wave, then one
+timed wave (CUDA events). Each result has the reference's fields
+(``roofline`` is ``Roofline.report()`` under the ``h100-sxm`` profile, from
+the analytic counts of ``roofline.analysis`` and the reference's
+model-operation formula; ``memory`` holds ``torch.cuda.max_memory_allocated``;
+``mesh`` is ``"1"``), the wave's ms and its launches, and is written as
+``tnn-mnist__<cell><variant>__1.json`` under ``--out``. The plain backends
+(``direct``, ``matmul``) run where their largest intermediates fit in the
+card's free memory, else report ``status="skip"`` with the bytes they would
+need. ``--device cpu`` runs the plain path at a toy size (``--sites``,
+``--batch``).
+
+The reference's multi-pod mesh and its column-parallel variant need more
+than one card, and its LM architectures are not ported: those are refused.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import random as _random
+from repro_torch.core.network import (
+    NetworkConfig, init_network, network_forward, network_train_wave,
+    prototype_config,
+)
+from repro_torch.device import resolve_device
+from repro_torch.roofline import analysis as RL
+from repro_torch.utils.tracing import read_counts, reset_counts
+
+TNN_CELLS = {
+    # one gamma wave of unsupervised STDP learning over a global image batch
+    "tnn_train_8k": ("train", 8192),
+    # inference-only wave (forward + WTA, no STDP)
+    "tnn_infer_64k": ("infer", 65536),
+}
+THETA = (20, 6)        # the reference's dry-run thresholds
+SITES = 625
+SEED = 0
+IMPLS = ("direct", "matmul", "pallas", "fused")
+MULTI_GPU = ("needs more than one card: ROADMAP Queue 1 item 5 (multi-GPU, "
+             "data x model) ports the mesh")
+LM_ARCHS = ("the port runs the TNN prototype only; the LM architectures wait "
+            "for ROADMAP Queue 1 item 6 (LM substrate)")
+
+
+def _tnn_variant_cfg(cfg: NetworkConfig, impl: str, gauss: bool) -> NetworkConfig:
+    new_layers = []
+    for l in cfg.layers:
+        col = dataclasses.replace(
+            l.column, impl=impl,
+            stdp=dataclasses.replace(
+                l.column.stdp, batch_reduce="gauss" if gauss else "sum"))
+        new_layers.append(dataclasses.replace(l, column=col))
+    return dataclasses.replace(cfg, layers=tuple(new_layers))
+
+
+def variant_suffix(impl: str, gauss: bool) -> str:
+    """The reference's file-name suffix: ``_<impl>`` (none for "direct"),
+    then ``_gauss``."""
+    return ("" if impl == "direct" else f"_{impl}") + ("_gauss" if gauss else "")
+
+
+def model_flops(cfg: NetworkConfig, kind: str, B: int) -> float:
+    """The reference's algorithmic operations of one wave: the V contraction
+    at all T = 16 wave positions of its formula, per image, x 1.5 for the
+    STDP case generation and update when learning."""
+    per_img = sum(l.n_cols * l.column.p * l.column.q * 16 for l in cfg.layers)
+    if kind == "train":
+        per_img *= 1.5
+    return per_img * B
+
+
+def cell_inputs(cfg: NetworkConfig, B: int, device: torch.device):
+    """(x, params, key): a (B, sites, p1) uint8 volley drawn from ``SEED`` on
+    ``device`` (spike times 0..T, T = no spike), the weights
+    ``init_network(PRNGKey(SEED))`` and the wave key
+    ``split(PRNGKey(SEED))[1]``."""
+    T = cfg.layers[0].column.wave.T
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randint(0, T + 1, (B, cfg.layers[0].n_cols, cfg.layers[0].column.p),
+                      generator=g, dtype=torch.uint8, device=device)
+    params = init_network(_random.PRNGKey(SEED), cfg, device)
+    return x, params, _random.split(_random.PRNGKey(SEED))[1]
+
+
+def plain_peak_bytes(cfg: NetworkConfig, kind: str, B: int, impl: str,
+                     gauss: bool) -> int:
+    """Bytes of the plain backends' largest live intermediates in one wave
+    (the layer with the most): "direct"'s per-tick (C, B, p, q) int32
+    minimum beside the (C, B, T, q) potentials; "matmul"'s (C, B*T, p*T)
+    ramp matrix at 8 bytes an element (its float32 copy and as much again
+    of bool and int32 intermediates: the forward of ``tnn_train_8k`` ran
+    out of an H100's 79 GiB with 44 GiB live when it asked for the 39 GiB
+    float32 matrix); learning adds the STDP's (C, B, p, q) planes (about
+    32 bytes an element with the uniforms under "sum", 8 under "gauss")."""
+    worst = 0
+    for l in cfg.layers:
+        C, p, q, T = l.n_cols, l.column.p, l.column.q, l.column.wave.T
+        e = C * B * p * q
+        fwd = (4 * e + 8 * C * B * T * q if impl == "direct"
+               else 8 * C * B * T * p * T + 8 * C * B * T * q)
+        learn = 0 if kind == "infer" else (8 * e if gauss else 32 * e)
+        worst = max(worst, fwd, learn)
+    return worst
+
+
+def _route_works(cfg: NetworkConfig, kind: str, impl: str, gauss: bool, x, params,
+                 zs) -> List[Tuple[str, RL.Work]]:
+    """The work of every kernel (or plain step) the wave runs, in order,
+    from :mod:`repro_torch.roofline.analysis`."""
+    T = cfg.layers[0].column.wave.T
+    thetas = [l.column.theta for l in cfg.layers]
+    B, C = x.shape[0], x.shape[1]
+    shapes = [(l.column.p, l.column.q) for l in cfg.layers]
+    if kind == "infer":
+        if impl == "pallas":
+            return [(f"tnn_column[{i}]", w) for i, w in
+                    enumerate(RL.layer_works(x, params, thetas, T))]
+        return [("tnn_wave[forward]", RL.forward_work(x, params, thetas, T))]
+    if gauss:
+        out = []
+        for i, (w, (p, q)) in enumerate(zip(RL.layer_works(x, params, thetas, T),
+                                            shapes)):
+            out += [(f"threefry[{i}]", RL.threefry_work(C * p * q)),
+                    (f"tnn_column[{i}]", w),
+                    (f"gauss_update[{i}]", RL.gauss_update_work(C, B, p, q))]
+        return out
+    draws = [(f"threefry[{i}]", RL.threefry_work(2 * C * B * p * q))
+             for i, (p, q) in enumerate(shapes)]
+    if impl != "pallas":
+        learn = (RL.forward_work(x, params, thetas, T)
+                 + RL.learn_epilogue_work(C, B, [p * q for p, q in shapes]))
+        return draws + [("tnn_wave[learn]", learn)]
+    out = []
+    for i, (w, (p, q)) in enumerate(zip(RL.layer_works(x, params, thetas, T),
+                                        shapes)):
+        out += [draws[i], (f"tnn_column[{i}]", w),
+                (f"stdp_update[{i}]", RL.stdp_work(C, B, p, q))]
+    return out
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _time_ms(fn, dev: torch.device) -> Tuple[float, Any]:
+    """One call's ms: CUDA events on the card, the host clock on the CPU."""
+    if dev.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+    t0 = time.perf_counter()
+    out = fn()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def run_tnn_cell(cell_name: str, multi_pod: bool = False, verbose: bool = True,
+                 column_parallel: bool = False, impl: str = "pallas",
+                 gauss: bool = False, *, sites: int = SITES,
+                 batch: Optional[int] = None, device="cuda",
+                 outputs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Run one cell's wave on one card (the reference lowers it for a pod):
+    warm up once, time one wave; returns the reference's result fields plus
+    ``wave_ms``, the timed wave's ``launches`` and ``kernel_bound_ms`` (the
+    sum of its kernels' bounds, which run one after another). ``batch`` and
+    ``sites`` cut the cell for a toy run. When ``outputs`` is a dict it
+    receives the wave's inputs and outputs (``x``, ``params``, ``key``,
+    ``zs`` and, learning, ``new_params``) and ``wave``, a function that
+    runs the same wave again."""
+    if multi_pod or column_parallel:
+        raise ValueError(f"{'multi_pod' if multi_pod else 'column_parallel'} "
+                         f"{MULTI_GPU}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
+    kind, B = TNN_CELLS[cell_name]
+    if gauss and kind != "train":
+        raise ValueError("the gauss variant changes only the learning wave")
+    B = B if batch is None else int(batch)
+    dev = resolve_device(device)
+    cfg = _tnn_variant_cfg(prototype_config(sites=sites, theta1=THETA[0],
+                                            theta2=THETA[1]), impl, gauss)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    tag = f"tnn-mnist x {cell_name}{variant_suffix(impl, gauss)} x 1 ({name})"
+    result: Dict[str, Any] = {
+        "arch": "tnn-mnist", "cell": cell_name, "mesh": "1",
+        "column_parallel": False, "impl": impl, "gauss": gauss,
+        "device": name, "sites": sites, "batch": B, "theta": list(THETA)}
+    if impl in ("direct", "matmul") and dev.type == "cuda":
+        need = plain_peak_bytes(cfg, kind, B, impl, gauss)
+        gc.collect()                 # what an earlier run left is free
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            why = (f"the plain {impl} path needs about {need:,} bytes of "
+                   f"intermediates, {free:,} are free on the card")
+            if verbose:
+                print(f"[skip] {tag}: {why}", flush=True)
+            return dict(result, status="skip", reason=why, needs_bytes=need)
+    t0 = time.perf_counter()
+    try:
+        x, params, key = cell_inputs(cfg, B, dev)
+        if kind == "train":
+            def wave():
+                return network_train_wave(x, params, cfg, key)
+        else:
+            def wave():
+                return network_forward(x, params, cfg), None
+        resident = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        wave()
+        _sync(dev)
+        compile_s = time.perf_counter() - t0
+        reset_counts()
+        wave_ms, (zs, new_params) = _time_ms(wave, dev)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        works = _route_works(cfg, kind, impl, gauss, x, params, zs)
+        total = sum((w for _, w in works), RL.Work())
+        roof = RL.from_counts(total.peak_ops(), total.bytes,
+                              model_flops(cfg, kind, B))
+        r = roof.report()
+        result.update(
+            status="ok", compile_s=round(compile_s, 2), wave_ms=wave_ms,
+            roofline=r, collectives={}, launches=launches,
+            kernel_bound_ms=sum(w.bound()[0] for _, w in works),
+            kernels={n: {"bytes": w.bytes, "ops": w.ops, "bound_ms": w.bound()[0],
+                         "bound_by": w.bound()[1]} for n, w in works},
+            memory={"temp_size_in_bytes": float(peak - resident),
+                    "max_memory_allocated": float(peak)},
+            spikes=[int((z < cfg.layers[0].column.wave.T).sum()) for z in zs])
+        if outputs is not None:
+            outputs.update(x=x, params=params, key=key, zs=zs,
+                           new_params=new_params, wave=wave)
+        if verbose:
+            print(f"[ok]   {tag}: wave {wave_ms:.3f} ms (bound "
+                  f"{result['kernel_bound_ms']:.3f} ms over its kernels) | "
+                  f"bottleneck={r['bottleneck']} "
+                  f"t=({r['t_compute_s']:.2e},{r['t_memory_s']:.2e},"
+                  f"{r['t_collective_s']:.2e})s roofline={r['roofline_fraction']:.2%} "
+                  f"| peak {peak / 2**30:.2f} GiB | launches {launches}", flush=True)
+    except Exception as e:  # noqa: BLE001 - report, keep sweeping
+        result.update(status="error", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+        if verbose:
+            print(f"[ERR]  {tag}: {type(e).__name__}: {e}", flush=True)
+    return result
+
+
+def variants(cell_name: str, impls: Sequence[str]):
+    """(impl, gauss) pairs of a cell: every impl, and for the learning cell
+    each again in the "gauss" mode; the kernels' backends first, the plain
+    ones (the largest intermediates) last."""
+    impls = sorted(impls, key=lambda i: i in ("direct", "matmul"))
+    modes = (False, True) if TNN_CELLS[cell_name][0] == "train" else (False,)
+    return [(impl, gauss) for impl in impls for gauss in modes]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="tnn-mnist")
+    ap.add_argument("--cell", default="all",
+                    help="all, or a comma list of " + ", ".join(TNN_CELLS))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--colpar", action="store_true",
+                    help="the reference's column-parallel variant (refused)")
+    ap.add_argument("--impl", default="pallas,fused",
+                    help="comma list of " + ", ".join(IMPLS))
+    ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--sites", type=int, default=SITES)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="cut every cell's batch to this (a toy run)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if args.arch != "tnn-mnist":
+        ap.error(f"--arch {args.arch}: {LM_ARCHS}")
+    if args.mesh != "single" or args.colpar:
+        ap.error(f"{'--colpar' if args.colpar else '--mesh ' + args.mesh} {MULTI_GPU}")
+    impls = args.impl.split(",")
+    bad = [i for i in impls if i not in IMPLS]
+    if bad:
+        ap.error(f"--impl {bad}: choose from {IMPLS}")
+    cells = list(TNN_CELLS) if args.cell == "all" else args.cell.split(",")
+    for c in cells:
+        if c not in TNN_CELLS:
+            ap.error(f"--cell {c}: choose from {list(TNN_CELLS)}")
+    os.makedirs(args.out, exist_ok=True)
+    n = {"ok": 0, "skip": 0, "error": 0}
+    for cell_name in cells:
+        for impl, gauss in variants(cell_name, impls):
+            res = run_tnn_cell(cell_name, impl=impl, gauss=gauss,
+                               sites=args.sites, batch=args.batch,
+                               device=args.device)
+            n[res["status"]] += 1
+            fname = (f"tnn-mnist__{cell_name}{variant_suffix(impl, gauss)}__"
+                     f"{res['mesh']}.json")
+            with open(os.path.join(args.out, fname), "w") as f:
+                json.dump(res, f, indent=1)
+    print(f"\ndry-run complete: {n['ok']} ok, {n['skip']} documented skips, "
+          f"{n['error']} errors")
+    return 1 if n["error"] else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

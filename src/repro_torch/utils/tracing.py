@@ -1,0 +1,44 @@
+"""Launch counts of the port's hand-written kernels.
+
+:func:`kernel_launch_count` is the port's counterpart of the reference's
+``pallas_launch_count``: where the reference counts ``pallas_call``
+equations in a jaxpr, the port counts the launches its kernel wrappers make
+during one call, from the wrappers' ``LAUNCHES`` counters (each wrapper adds
+one where it launches its kernel, and nowhere else; a plain version on the
+CPU launches nothing). Under ``impl="pallas"`` a learning wave of an
+N-layer cascade launches N column, N STDP and N threefry kernels; under
+``impl="fused"`` one wave kernel and N threefry draws; a "seq" or "gauss"
+network launches N column kernels and N threefry draws, and no wave or
+STDP kernel.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+from repro_torch.kernels import stdp_update, threefry, tnn_column, tnn_wave, wta
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    tnn_wave.LAUNCHES.reset()
+    for mod in (tnn_column, stdp_update, wta, threefry):
+        mod.LAUNCHES.reset()
+
+
+def read_counts() -> Dict[str, int]:
+    """Every kernel's launch count, by name (the wave kernel's two halves
+    apart)."""
+    return {"tnn_wave[forward]": tnn_wave.LAUNCHES.forward,
+            "tnn_wave[learn]": tnn_wave.LAUNCHES.learn,
+            "tnn_column": tnn_column.LAUNCHES.n,
+            "stdp_update": stdp_update.LAUNCHES.n, "wta": wta.LAUNCHES.n,
+            "threefry": threefry.LAUNCHES.n}
+
+
+def kernel_launch_count(fn: Callable, *args, **kwargs) -> Tuple[Dict[str, int], object]:
+    """Call ``fn(*args, **kwargs)`` with every count set to 0 just before it
+    and read just after; returns ``(launches by kernel, fn's result)``.
+    The counts are left as the call made them."""
+    reset_counts()
+    out = fn(*args, **kwargs)
+    return read_counts(), out

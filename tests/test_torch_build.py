@@ -104,6 +104,7 @@ def test_threefry_launch_signature_and_constants_match_the_source():
     function's, and its block size is one the kernel takes."""
     text = _source("threefry.cu")
     for fn, argtypes in (("tnn_threefry_uniform_launch", threefry.LAUNCH_ARGTYPES),
+                         ("tnn_threefry_nested_launch", threefry.NESTED_ARGTYPES),
                          ("tnn_threefry_hash_launch", threefry.HASH_ARGTYPES)):
         params = re.search(r"int\s+%s\s*\(([^)]*)\)" % fn, text).group(1)
         want = []

@@ -157,11 +157,14 @@ def test_stdp_counter_form(seed, B, p, q):
 
 
 def test_stdp_rejects_unported_reduce_modes():
+    """The counter form takes only "sum" ("seq" and "gauss" run through
+    ``stdp_update``), and refuses the others with the reference's message."""
     spec = t_temporal.WaveSpec()
     z = torch.zeros((2, 3), dtype=torch.uint8)
     for mode in ("seq", "gauss"):
         cfg = t_stdp.STDPConfig(batch_reduce=mode)
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="counter-form STDP requires "
+                                             "batch_reduce='sum'"):
             t_stdp.stdp_net_from_uniforms(
                 torch.zeros((4, 3), dtype=torch.int8),
                 torch.zeros((2, 4), dtype=torch.uint8), z,

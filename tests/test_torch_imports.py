@@ -18,6 +18,7 @@ from repro_torch.core.column import init_weights
 from repro_torch.core.layer import init_layer, layer_uniforms
 from repro_torch.core.network import init_network
 from repro_torch.kernels import threefry
+from repro_torch.launch import dryrun as launch_dryrun
 from repro_torch.launch import loadgen as launch_loadgen
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import tnn_mnist as launch_flagship
@@ -37,7 +38,8 @@ def _modules():
 def test_port_imports_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.tnn_wave" in mods and len(mods) >= 20
-    for new in ("launch.loadgen", "launch.tnn_mnist", "core.hwmodel", "core.macros"):
+    for new in ("launch.loadgen", "launch.tnn_mnist", "core.hwmodel", "core.macros",
+                "launch.dryrun", "roofline.analysis", "utils.tracing"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -91,6 +93,10 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
         launch_loadgen.main(["--sites", "4", "--requests", "2"])
     with pytest.raises(RuntimeError, match="cuda"):
         launch_flagship.main(["--train", "16", "--test", "8", "--waves", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        threefry.nested_uniforms(key, 4, 2, (2, 3, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_dryrun.run_tnn_cell("tnn_train_8k", sites=4, batch=2)
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

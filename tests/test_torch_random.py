@@ -145,3 +145,58 @@ def test_threefry_wrapper_runs_its_plain_version_on_the_cpu():
     assert torch.equal(u.view(torch.int32), want.view(torch.int32))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert t_threefry.LAUNCHES.n == before
+
+
+@pytest.mark.parametrize("lo,hi", [(-3.7, 2.9), (0.3, 1.7), (5.0, 1000.5)])
+def test_uniform_minval_maxval(lo, hi):
+    """``max(minval, floats * span + minval)``, the product and the sum fused
+    as XLA's CPU backend fuses them: 30,000 draws a range."""
+    jk = jax.random.PRNGKey(3)
+    _bits_eq(jax.random.uniform(jk, (30_000,), jnp.float32, lo, hi),
+             t_random.uniform(t_random.PRNGKey(3), (30_000,), minval=lo, maxval=hi))
+
+
+def test_normal_matches_jax_bit_for_bit():
+    """160,000 standard normals over four keys (one jit of the reference's
+    draws), a vmap over a batch of keys, and the same normals built from
+    the unit floats the threefry kernel's wrapper draws per column."""
+    keys = [0, 7, 2**32 - 1, 123456789012]
+    draw = jax.jit(lambda k: jax.random.normal(k, (40_000,), jnp.float32))
+    for seed in keys:
+        _bits_eq(draw(jax.random.PRNGKey(seed)),
+                 t_random.normal(t_random.PRNGKey(seed), (40_000,)))
+    jks = jax.random.split(jax.random.PRNGKey(3), 5)
+    want = jax.vmap(lambda k: jax.random.normal(k, (32, 12)))(jks)
+    tks = t_random.split(t_random.PRNGKey(3), 5)
+    _bits_eq(want, t_random.normal(tks, (32, 12)))
+    floats = t_threefry.layer_uniforms(t_random.PRNGKey(3), 5, (32, 12), device="cpu")
+    _bits_eq(want, t_random.unit_to_normal(floats))
+
+
+def test_erf_inv_edges():
+    """``erf_inv`` at +-1 (+-inf), 0, +-nextafter(-1, 0) (the normal's
+    lowest draw), and 4,001 consecutive floats on each side of the w = 5
+    branch point (|x| = sqrt(1 - exp(-5))), against ``lax.erf_inv``."""
+    lo = np.float32(t_random.NORMAL_LO)
+    x5 = np.float32(np.sqrt(1 - np.exp(-5.0)))
+    around = x5.view(np.int32) + np.arange(-2000, 2001, dtype=np.int32)
+    x = np.concatenate([
+        np.array([1.0, -1.0, 0.0, -0.0, lo, -lo, 0.5, -0.5], np.float32),
+        around.view(np.float32), -around.view(np.float32)])
+    want = jax.jit(jax.lax.erf_inv)(jnp.asarray(x))
+    got = t_random.erf_inv(torch.from_numpy(x))
+    _bits_eq(want, got)
+    assert np.isinf(got[:2].numpy()).all()
+    w = -t_random._log1p(torch.from_numpy(x[8:]) * -torch.from_numpy(x[8:]))
+    assert bool((w < 5).any()) and bool((w >= 5).any())
+
+
+def test_sqrt32_is_correctly_rounded():
+    """The float32 root the normal and the gauss update take: numpy's
+    (correctly rounded) on 200,000 floats, zeros and whole counts."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.random(100_000, np.float32) * 50,
+                        np.exp(rng.normal(0, 20, 100_000)).astype(np.float32),
+                        np.arange(0, 64, dtype=np.float32)])
+    got = t_random.sqrt32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), np.sqrt(x).view(np.uint32))
