@@ -73,15 +73,31 @@ Phases, each of which fails the run on error:
             each timed (one wave, CUDA events) with its Roofline.report() and
             peak memory, launches counted, and held against the plain version
             on the card chunk by chunk, bit for bit.
-14. report  one JSON line with the serve, train, slice-6/7 and shape numbers,
-            one with every kernel's numbers, the card's nvidia-smi line, then
-            the result line.
+14. mesh    the (data, model) mesh at 625 sites: the threefry window entry
+            against its plain version and the padded slice of the global
+            draw (every rank's window under 2x2, 4x1 and 1x4 at B = 16, a
+            pad-only window, odd widths, B = 8,192 windows), timed; then 4
+            ranks sharing the card over gloo (chosen here; NCCL refuses two
+            ranks on one card) run, under 2x2, 4x1 and 1x4, the train
+            launcher (pallas; fused K = 4) and online serving (theta (12, 3),
+            64 slots, K = 4, swaps every 4), each equal to the unmeshed card
+            run (weights, key, wave, vote tables, accuracy, every uid's class
+            id and version); the 2x2 checkpoint equals train A's file for
+            file and restores under 1x4 and unmeshed; the column-parallel
+            tnn_train_8k cell (640 sites) on 1x4 equals the unmeshed 640-site
+            wave (pallas, fused); one rank over NCCL (1x1) repeats the train
+            and online runs. Times from ranks sharing one card are labelled
+            so.
+15. report  one JSON line with the serve, train, slice-6/7/8 and shape
+            numbers, one with every kernel's numbers, the card's nvidia-smi
+            line, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -93,9 +109,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer, restore_tnn  # noqa: E402
 from repro_torch import random as t_random  # noqa: E402
 from repro_torch.configs.tnn_mnist import (  # noqa: E402
     deep_config, launcher_network_config, network_config,
@@ -114,11 +132,12 @@ from repro_torch.core.stdp import (  # noqa: E402
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, stdp_update, threefry, tnn_column, tnn_wave, wta,
+    _build, padding, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
 from repro_torch.kernels.padding import network_plan  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import loadgen as t_loadgen  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_2d, spawn_ranks  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import tnn_mnist as t_flagship  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -126,7 +145,7 @@ from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E40
 from repro_torch.roofline import analysis as RL  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
 from repro_torch.utils.tracing import (  # noqa: E402
-    kernel_launch_count, read_counts, reset_counts,
+    collectives_recorded, kernel_launch_count, read_counts, reset_counts,
 )
 
 # Every kernel's bytes and operations, and the H100 SXM peaks they are priced
@@ -1049,7 +1068,7 @@ def train_phase(dev):
             "b_fused_k4": numbers(out_b, counts_b, wall_b),
             "c_resumed": numbers(out_c, counts_c, wall_c),
             "cpu_wall_s": wall_cpu, "final_wave": ta.wave, "weights_moved": moved,
-            "vote_table_sum": float(vt.sum()), "spans": spans}, counts_a, (dirs["a"], ta.state)
+            "vote_table_sum": float(vt.sum()), "spans": spans}, counts_a, (dirs["a"], ta)
 
 
 # ---------------------------------------------------------------------------
@@ -1201,9 +1220,9 @@ def expected_online_launches(impl: str, waves: int, swaps: int) -> dict:
 def _same_np_state(a, b, what: str) -> None:
     for key in a["params"]:
         if not (a["params"][key] == b["params"][key]).all():
-            raise AssertionError(f"{what}: shadow {key} differs")
+            raise AssertionError(f"{what}: {key} differs")
     if not ((a["rng"] == b["rng"]).all() and int(a["wave"]) == int(b["wave"])):
-        raise AssertionError(f"{what}: shadow key or wave differs")
+        raise AssertionError(f"{what}: key or wave differs")
 
 
 def traced_online(impl: str, dev, params0):
@@ -1309,7 +1328,9 @@ def online_phase(dev, params0):
           f"{[float(t.sum()) for t in ref['tables'].values()]})", flush=True)
     for impl in ("pallas", "fused"):
         out[impl]["traced"] = traced_online(impl, dev, params0)
-    return out
+    fused = runs["fused"]
+    return out, {"map": fused["map"], "state": fused["state"],
+                 "tables": {v: t.numpy() for v, t in fused["tables"].items()}}
 
 
 def online_ckpt_phase(dev, ckpt_a: str, final_a):
@@ -1692,6 +1713,335 @@ def cells_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# The (data, model) mesh (port slice 8): 4 ranks sharing the card over gloo,
+# one rank over NCCL, the windowed threefry draw
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")  # .gitignore lists build/
+MESH_FACTORS = ((2, 2), (4, 1), (1, 4))
+MESH_ARGS = ["--backend", "gloo"]   # 4 ranks on one card: gloo, chosen here
+
+
+def check_window_one(name, key, n_cols, B, pq, window, dev, global_u=None) -> float:
+    """The window entry against its plain version on the card and, given
+    the layer's global kernel draw, against its padded slice; bit for bit."""
+    col0, n_local, row0, b_local = window
+    uk = threefry.window_uniforms(key, n_cols, B, pq, window, device=dev)
+    up = threefry.window_uniforms_plain(key, n_cols, B, pq, window, device=dev)
+    torch.cuda.synchronize()
+    bad = int((uk.view(torch.int32) != up.view(torch.int32)).sum())
+    err = float((uk - up).abs().max())
+    vs_global = "-"
+    if global_u is not None:
+        g = global_u[col0:col0 + n_local, :, row0:row0 + b_local]
+        pad = n_local - g.shape[0]
+        g = torch.cat([g, torch.ones((pad, *g.shape[1:]), device=dev)]) if pad else g
+        nb = int((uk.view(torch.int32) != g.view(torch.int32)).sum())
+        bad += nb
+        vs_global = f"{nb} floats differ from the global draw's slice"
+    pads = max(0, col0 + n_local - max(n_cols, col0))
+    print(f"  threefry window {name}: ({n_local}, 2, {b_local}, {pq[0]}, {pq[1]}) of "
+          f"({n_cols}, 2, {B}, ...) from column {col0}, row {row0} ({pads} pad "
+          f"columns); vs plain max_abs_err={err}; {vs_global}", flush=True)
+    if bad or err:
+        raise AssertionError(f"threefry window {name}: {bad} floats differ")
+    return err
+
+
+def check_window_threefrys(dev) -> float:
+    """Every rank's window of both prototype layers at B = 16 under 2x2, 4x1
+    and 1x4 (the last column pads), a pad-only window, odd widths, and the
+    tnn_train_8k shapes (B = 8,192: a 640-site rank window, a 2x2 window,
+    and a partly padded window of 625 sites against the plain draw)."""
+    err = 0.0
+    key = t_random.PRNGKey(31)
+    for pq in ((32, 12), (12, 10)):
+        g = threefry.layer_uniforms(key, 625, (2, WAVE_BATCH, *pq), device=dev)
+        for d, m in MESH_FACTORS:
+            for r in range(d * m):
+                s = padding.MeshSpec(n_data=d, n_model=m, n_cols=625,
+                                     data_index=r // m, model_index=r % m)
+                w = s.uniform_window(625, WAVE_BATCH // d)
+                err = max(err, check_window_one(f"{d}x{m} rank {r} {pq}", key, 625,
+                                                WAVE_BATCH, pq, w, dev, g))
+        del g
+    for name, n_cols, B, pq, w in (
+            ("pad only", 625, 16, (32, 12), (625, 3, 0, 16)),
+            ("odd widths 11x9, one row", 48, 7, (11, 9), (40, 13, 3, 1)),
+            ("B=8192, 625 sites, 2 real + 2 pad columns", 625, 8192, (32, 12),
+             (623, 4, 2048, 2048))):
+        err = max(err, check_window_one(name, key, n_cols, B, pq, w, dev))
+    g = threefry.layer_uniforms(key, 640, (2, 8192, 12, 10), device=dev)
+    for w in ((160, 160, 0, 8192), (320, 320, 4096, 4096)):
+        err = max(err, check_window_one(f"tnn_train_8k 640 sites layer 2 {w}", key,
+                                        640, 8192, (12, 10), w, dev, g))
+    del g
+    g = threefry.layer_uniforms(key, 625, (2, 8192, 12, 10), device=dev)
+    err = max(err, check_window_one("tnn_train_8k 625 sites 1x4 last rank (3 pad)",
+                                    key, 625, 8192, (12, 10), (471, 157, 0, 8192), dev, g))
+    del g
+    torch.cuda.empty_cache()
+    return err
+
+
+def measure_window_threefry(dev):
+    """The window entry at the 2x2 mesh's training shape (625 sites, B = 16:
+    a rank's (313, 2, 8, p, q) of each layer; rank 3's, whose last column is
+    a pad site): device ms per call in turns with the plain version, beside
+    its bound (the floats written; the INT32 operations of the 312 real
+    columns' hashes). The row is the mean of the two layers' launches."""
+    key = t_random.PRNGKey(32)
+    spec = padding.MeshSpec(n_data=2, n_model=2, n_cols=625, data_index=1,
+                            model_index=1)
+    w = spec.uniform_window(625, WAVE_BATCH // 2)
+    per = []
+    for l, pq in enumerate(((32, 12), (12, 10)), start=1):
+        k = lambda: threefry.window_uniforms(key, 625, WAVE_BATCH, pq, w, device=dev)  # noqa: E731
+        pl = lambda: threefry.window_uniforms_plain(key, 625, WAVE_BATCH, pq, w,  # noqa: E731
+                                                     device=dev)
+        ms, plain_ms, readings = in_turns(k, pl, 200)
+        per_col = 2 * (WAVE_BATCH // 2) * pq[0] * pq[1]
+        work = RL.threefry_work(312 * per_col, pad_floats=per_col)
+        per.append(_timing(f"threefry window layer {l} {w}", WAVE_BATCH // 2, ms,
+                           plain_ms, readings, work))
+    return _mean_timing(per)
+
+
+def _mesh_train(mesh, ref, impl: str, k: int):
+    """The train launcher with --mesh on this rank, counts from 0 just before
+    it and the collectives recorded; its gathered final state, vote table and
+    accuracy must equal train A's (the unmeshed card run)."""
+    name = f"{mesh.n_data}x{mesh.n_model}"
+    ckpt = os.path.join(MESH_DIR, f"train_{name}_{impl}")
+    reset_counts()
+    t0 = time.perf_counter()
+    with collectives_recorded() as entries:
+        out = launch_train.main(train_args(impl, ckpt, "cuda", k)
+                                + ["--mesh", name] + (ref["mesh_args"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, window = read_counts(), threefry.LAUNCHES.window
+    tr = out["trainer"]
+    st = convert.state_from_local(tr.state, tr.cfg, tr.mesh)
+    _same_np_state(st, ref["train"]["state"], f"mesh {name} train {impl}")
+    if not np.array_equal(tr.vote_table.cpu().numpy(), ref["train"]["vote_table"]):
+        raise AssertionError(f"mesh {name} train {impl}: vote table differs")
+    if tr.accuracy != ref["train"]["accuracy"]:
+        raise AssertionError(f"mesh {name} train {impl}: accuracy differs")
+    if not window or counts["threefry"] != window:
+        raise AssertionError(f"mesh {name} train {impl}: {window} window draws of "
+                             f"{counts['threefry']} threefry launches")
+    stats = RL.collective_stats(entries)
+    return {"wall_s": wall, "wave_ms_median": 1e3 * float(np.median(tr.wave_times)),
+            "launches": counts, "window_launches": window,
+            "collective_bytes": dict(stats.bytes_by_kind),
+            "collective_counts": dict(stats.count_by_kind)}
+
+
+def _mesh_online(mesh, ref):
+    """Online serving at theta = (12, 3) on the mesh (fused, 64 slots, K = 4,
+    swaps every 4): every uid's class id and version, the published vote
+    tables and the gathered shadow equal the unmeshed card run's."""
+    name = f"{mesh.n_data}x{mesh.n_model}"
+    cfg = network_config(625, *FIRING, impl="fused")
+    params0 = [torch.from_numpy(w) for w in ref["params0"]]
+    eng = TNNEngine(cfg, params0, n_slots=SLOTS, impl="fused", superbatch_k=ONLINE_K,
+                    online_stdp=True, swap_every=SWAP_EVERY, seed=0, mesh=mesh)
+    eng.fit(*digits(FIT_IMAGES, seed=1))
+    imgs = digits(ONLINE_REQUESTS, seed=2)[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with collectives_recorded() as entries:
+        for uid in range(ONLINE_REQUESTS):
+            eng.submit(ClassifyRequest(uid=uid, image=imgs[uid]))
+        tables = {eng.version: eng.vote_table}
+        while eng.pending:
+            eng.poll()
+            tables[eng.version] = eng.vote_table
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, window = read_counts(), threefry.LAUNCHES.window
+    got = {u: (r.result, r.version) for u, r in eng.done.items()}
+    if got != ref["online"]["map"]:
+        diff = [u for u in ref["online"]["map"] if got.get(u) != ref["online"]["map"][u]]
+        raise AssertionError(f"mesh {name} online: {len(diff)} uids differ (first {diff[:5]})")
+    for v, t in ref["online"]["tables"].items():
+        if not np.array_equal(tables[v].cpu().numpy(), t):
+            raise AssertionError(f"mesh {name} online: published v{v} vote table differs")
+    _same_np_state(convert.state_from_local(eng.learn_state, cfg, mesh),
+                  ref["online"]["state"], f"mesh {name} online shadow")
+    st = eng.stats()
+    stats = RL.collective_stats(entries)
+    return {"wall_s": wall, "waves_per_s": st.waves_per_s, "swaps": eng.swaps,
+            "launches": counts, "window_launches": window,
+            "collective_bytes": dict(stats.bytes_by_kind),
+            "collective_counts": dict(stats.count_by_kind)}
+
+
+def _mesh_colpar(mesh, impl: str):
+    """The column-parallel tnn_train_8k cell (640 sites) on this 1x4 mesh:
+    its gathered spike times and new weights equal the unmeshed 640-site
+    wave's (saved by the parent), bit for bit."""
+    outputs = {}
+    res = dryrun.run_tnn_colpar_cell("tnn_train_8k", mesh, impl=impl, outputs=outputs)
+    if res["status"] != "ok":
+        raise AssertionError(f"colpar {impl}: {res.get('error')}\n{res.get('traceback', '')}")
+    spec = outputs["spec"]
+    want = torch.load(os.path.join(MESH_DIR, f"colpar_{impl}.pt"), weights_only=False)
+    for l in range(2):
+        z = mesh.gather_grid(outputs["zs"][l], spec, row_axis=0, site_axis=1)
+        w = mesh.gather_sites(outputs["new_params"][l], spec)
+        if not (torch.equal(z, want["zs"][l].to(z.device))
+                and torch.equal(w, want["new_params"][l].to(w.device))):
+            raise AssertionError(f"colpar {impl} layer {l}: differs from the "
+                                 f"unmeshed 640-site wave")
+    del outputs
+    torch.cuda.empty_cache()
+    return {k: res[k] for k in ("wave_ms", "collectives", "collective_counts",
+                                "launches", "kernel_bound_ms", "roofline")}
+
+
+def mesh_ranks():
+    """What each of the 4 ranks runs: for 2x2, 4x1 and 1x4 the train
+    launcher (pallas; fused K = 4) and online serving, each against the
+    unmeshed card run; under 1x4 the 2x2 pallas checkpoint restored, and the
+    column-parallel tnn_train_8k cell (pallas, fused) against the unmeshed
+    640-site wave."""
+    ref = torch.load(os.path.join(MESH_DIR, "ref.pt"), weights_only=False)
+    ref["mesh_args"] = MESH_ARGS
+    out = {}
+    for d, m in MESH_FACTORS:
+        mesh = make_mesh_2d(d, m, device="cuda", backend="gloo")
+        res = {"pallas": _mesh_train(mesh, ref, "pallas", 1),
+               "fused_k4": _mesh_train(mesh, ref, "fused", 4),
+               "online": _mesh_online(mesh, ref)}
+        if (d, m) == (1, 4):
+            cfg = launcher_network_config(625)
+            state, extra = restore_tnn(
+                Checkpointer(os.path.join(MESH_DIR, "train_2x2_pallas")), cfg,
+                mesh=mesh)
+            _same_np_state(convert.state_from_local(state, cfg, mesh),
+                          ref["train"]["state"], "2x2 checkpoint restored under 1x4")
+            if not np.array_equal(state["vote_table"].cpu().numpy(),
+                                  ref["train"]["vote_table"]):
+                raise AssertionError("2x2 checkpoint under 1x4: vote table differs")
+            res["colpar"] = {impl: _mesh_colpar(mesh, impl) for impl in ("pallas", "fused")}
+        out[f"{d}x{m}"] = res
+    return out
+
+
+def nccl_rank():
+    """One rank over NCCL (the launchers' default backend on the card): the
+    train launcher (fused, K = 4) with --mesh 1x1 and online serving,
+    against the unmeshed card runs."""
+    ref = torch.load(os.path.join(MESH_DIR, "ref.pt"), weights_only=False)
+    ref["mesh_args"] = ["--backend", "nccl"]
+    mesh = make_mesh_2d(1, 1, device="cuda", backend="nccl")
+    return {"fused_k4": _mesh_train(mesh, ref, "fused", 4),
+            "online": _mesh_online(mesh, ref)}
+
+
+def mesh_phase(dev, final_a, online_ref, params0, card: str):
+    """The unmeshed references to files, the 640-site waves, the window
+    draw's checks, then 4 gloo ranks on the card and 1 NCCL rank. Every
+    rank's failure fails the run. ``card`` (the nvidia-smi line) is printed
+    beside every time."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    err = check_window_threefrys(dev)
+    timing = measure_window_threefry(dev)
+    train_a = {"state": convert.state_to_numpy(final_a.state),
+               "vote_table": final_a.vote_table.cpu().numpy(),
+               "accuracy": final_a.accuracy}
+    torch.save({"train": train_a, "online": online_ref,
+                "params0": [w.cpu().numpy() for w in params0]},
+               os.path.join(MESH_DIR, "ref.pt"))
+    for impl in ("pallas", "fused"):
+        outputs = {}
+        res = dryrun.run_tnn_cell("tnn_train_8k", sites=dryrun.COLPAR_SITES, impl=impl,
+                                  device=dev, outputs=outputs, verbose=False)
+        if res["status"] != "ok":
+            raise AssertionError(f"640-site tnn_train_8k {impl}: {res.get('error')}")
+        torch.save({"zs": [z.cpu() for z in outputs["zs"]],
+                    "new_params": [w.cpu() for w in outputs["new_params"]],
+                    "wave_ms": res["wave_ms"]},
+                   os.path.join(MESH_DIR, f"colpar_{impl}.pt"))
+        print(f"  unmeshed 640-site tnn_train_8k {impl}: wave {res['wave_ms']:.3f} ms "
+              f"(one process, the card alone: {card})", flush=True)
+        del outputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(mesh_ranks, 4, work_dir=os.path.join(MESH_DIR, "ranks"),
+                        device="cuda", backend="gloo", timeout_s=600)
+    t_gloo = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nccl = spawn_ranks(nccl_rank, 1, work_dir=os.path.join(MESH_DIR, "nccl"),
+                       device="cuda", backend="nccl", timeout_s=300)[0]
+    t_nccl = time.perf_counter() - t1
+    cfg = launcher_network_config(625)
+    state, _ = restore_tnn(Checkpointer(os.path.join(MESH_DIR, "train_2x2_pallas")), cfg,
+                           device=dev)
+    _same_np_state(convert.state_to_numpy(state), train_a["state"],
+                  "2x2 checkpoint restored unmeshed")
+    for step in ("step_00000016", "step_00000032"):   # file for file train A's
+        a_dir = os.path.join(TRAIN_DIR, "a", step)
+        m_dir = os.path.join(MESH_DIR, "train_2x2_pallas", step)
+        for f in sorted(os.listdir(a_dir)):
+            if f.endswith(".npy") and not np.array_equal(
+                    np.load(os.path.join(a_dir, f)), np.load(os.path.join(m_dir, f))):
+                raise AssertionError(f"2x2 checkpoint {step}/{f} differs from train A's")
+    window_launches = sum(r[f][p]["window_launches"] for r in ranks
+                          for f in r for p in ("pallas", "fused_k4", "online"))
+    wall = time.perf_counter() - t0
+    print(f"  mesh: 4 ranks sharing ONE card over gloo, 2x2, 4x1 and 1x4 == the "
+          f"unmeshed card run (train pallas and fused K=4: weights, key, wave, vote "
+          f"table, accuracy; online: every uid's class id and version, the published "
+          f"vote tables, the shadow); the 2x2 checkpoint == train A's file for file "
+          f"and restores under 1x4 and unmeshed; colpar tnn_train_8k on 1x4 == the "
+          f"unmeshed 640-site wave; 1x1 over NCCL == the unmeshed run. Phase wall "
+          f"{wall:.1f} s (gloo ranks {t_gloo:.1f} s, NCCL rank {t_nccl:.1f} s) on {card}",
+          flush=True)
+    per_rank = {}
+    for f in ranks[0]:
+        per_rank[f] = {}
+        for part in ("pallas", "fused_k4", "online"):
+            p = per_rank[f][part] = {
+                "wall_s": [r[f][part]["wall_s"] for r in ranks],
+                "collective_bytes": {k: v for k, v in ranks[0][f][part]["collective_bytes"].items() if v},
+                "collective_counts": {k: v for k, v in ranks[0][f][part]["collective_counts"].items() if v}}
+            if part == "online":
+                p["waves_per_s"] = ranks[0][f][part]["waves_per_s"]
+                rate = f"{p['waves_per_s']:.1f} waves/s (rank 0's clock)"
+            else:
+                p["wave_ms_median"] = [r[f][part]["wave_ms_median"] for r in ranks]
+                rate = f"median wave ms/rank {[round(v, 3) for v in p['wave_ms_median']]}"
+            print(f"  {f} {part}, 4 ranks sharing one card ({card}): wall/rank "
+                  f"{[round(v, 3) for v in p['wall_s']]} s, {rate}; rank 0's collectives "
+                  f"(ring-model wire bytes) {p['collective_bytes']} counts "
+                  f"{p['collective_counts']}", flush=True)
+    colpar = {impl: {"wave_ms": [r["1x4"]["colpar"][impl]["wave_ms"] for r in ranks],
+                     "collectives": {k: v for k, v in ranks[0]["1x4"]["colpar"][impl]["collectives"].items() if v},
+                     "launches_rank0": ranks[0]["1x4"]["colpar"][impl]["launches"]}
+              for impl in ("pallas", "fused")}
+    for impl, c in colpar.items():
+        print(f"  colpar tnn_train_8k {impl} on 1x4, 4 ranks sharing one card ({card}): wave "
+              f"ms/rank {[round(v, 3) for v in c['wave_ms']]}, collective wire bytes "
+              f"{c['collectives']}, rank 0 launches {c['launches_rank0']}", flush=True)
+    print(f"  nccl 1x1 ({card}): train fused K=4 wall {nccl['fused_k4']['wall_s']:.2f} s, "
+          f"median wave {nccl['fused_k4']['wave_ms_median']:.3f} ms; online "
+          f"{nccl['online']['waves_per_s']:.1f} waves/s", flush=True)
+    return {"phase_wall_s": wall, "gloo_ranks_s": t_gloo, "nccl_rank_s": t_nccl,
+            "shared_card_ranks": per_rank, "colpar_1x4": colpar,
+            "nccl_1x1": {"train_fused_k4_wave_ms_median": nccl["fused_k4"]["wave_ms_median"],
+                         "online_waves_per_s": nccl["online"]["waves_per_s"]},
+            "window_launches": window_launches, "window_err": err,
+            "window_timing": timing}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1804,7 +2154,8 @@ def main() -> int:
     errs["fallback"], counts_fb = fallback_path(dev)
 
     phase("train at full width (main path of slice 5: launcher, trainer, checkpoints)")
-    train, counts_t, (ckpt_a, final_a) = train_phase(dev)
+    train, counts_t, (ckpt_a, trainer_a) = train_phase(dev)
+    final_a = trainer_a.state
 
     seconds = {}
     t0 = time.perf_counter()
@@ -1814,7 +2165,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase("serve online (learn while serving, K = 4, swaps every 4 waves) at theta = (12, 3)")
-    online = online_phase(dev, params0)
+    online, online_ref = online_phase(dev, params0)
     seconds["online"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1841,7 +2192,13 @@ def main() -> int:
     phase("cells: tnn_infer_64k and tnn_train_8k (the reference's dry-run cells) on the card")
     cells = cells_phase(dev)
     seconds["cells"] = time.perf_counter() - t0
-    print(f"  slice-6 and slice-7 phase seconds: {seconds}", flush=True)
+
+    t0 = time.perf_counter()
+    phase("mesh: the (data, model) mesh, 4 ranks sharing the card (gloo), 1 rank (NCCL)")
+    mesh = mesh_phase(dev, trainer_a, online_ref, params0, smi_line)
+    seconds["mesh"] = time.perf_counter() - t0
+    errs["threefry[window]"] = mesh["window_err"]
+    print(f"  slice-6, slice-7 and slice-8 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -1870,6 +2227,16 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
+    t = mesh["window_timing"]
+    kernels.append({
+        "name": "threefry[window]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry.cu",
+        "replaces": "jax.random.uniform sliced per shard (src/repro/core/network.py:477, "
+                    "shard_u; XLA threefry2x32, no Pallas kernel)",
+        "launches": mesh["window_launches"], "max_abs_err": errs["threefry[window]"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+    })
 
     def serve_numbers(rep):
         st = rep.stats
@@ -1880,6 +2247,7 @@ def main() -> int:
 
     keys = ("B", "bytes", "ops", "bytes_ms", "ops_ms", "events_ms")
     shapes = {h: {k: t[k] for k in keys} for h, t in timing.items()}
+    layer_timing["threefry[window]"] = mesh["window_timing"]
     for name, t in layer_timing.items():
         shapes[name] = {k: t[k] for k in keys}
         shapes[name]["per_layer"] = [
@@ -1902,6 +2270,7 @@ def main() -> int:
         "flagship": flagship,
         "modes": modes,
         "cells": cells,
+        "mesh": {k: v for k, v in mesh.items() if k not in ("window_timing",)},
         "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,

@@ -14,6 +14,12 @@ The TNN training checkpoint is ``{"params": {"layer_NN": int8 (C, p, q)},
 "rng": uint32 (2,), "wave": int32 (), "vote_table": float32 (S, q,
 n_classes)}``; :func:`restore_tnn` refuses a checkpoint written for another
 network (``tnn_config_fingerprint``) before it loads any array.
+
+Checkpoints carry no mesh: on a (data, model) mesh :func:`save_tnn` gathers
+the logical weights (every rank calls it) and rank 0 writes them, and
+:func:`restore_tnn` reads the full tree on every rank and cuts the rank's
+window, so a state saved under one factorization restores under any other
+or none, file for file the reference's.
 """
 from __future__ import annotations
 
@@ -61,17 +67,29 @@ def tnn_config_fingerprint(cfg) -> str:
     return f"tnn[{layers}]T{T}c{cfg.n_classes}"
 
 
+def agreed_latest_step(ckpt: "Checkpointer", mesh=None) -> Optional[int]:
+    """The latest step under ``ckpt``; on a mesh rank 0's (a collective),
+    so every rank restores one step while rank 0 may still be writing."""
+    step = ckpt.latest_step()
+    if mesh is not None:
+        step = int(mesh.broadcast_floats([-1 if step is None else step])[0])
+        step = None if step < 0 else step
+    return step
+
+
 def restore_tnn(ckpt: "Checkpointer", cfg, step: Optional[int] = None,
-                device="cuda") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+                device="cuda", mesh=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(state, extra)`` of the TNN checkpoint at ``step`` (default: the
     latest), the state in the port's form (``convert.state_from_numpy``: the
     weights and the vote table on ``device``, the key and the wave counter
     on the host). Refuses a checkpoint whose fingerprint is not ``cfg``'s
-    before loading any array."""
-    from repro_torch.convert import state_from_numpy
+    before loading any array. With a ``mesh`` (a collective) the latest
+    step is rank 0's, and the weights are the rank's local site slices on
+    the mesh's device (``convert.state_to_local``)."""
+    from repro_torch.convert import state_from_numpy, state_to_local
 
     if step is None:
-        step = ckpt.latest_step()
+        step = agreed_latest_step(ckpt, mesh)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt.dir}")
     want = tnn_config_fingerprint(cfg)
@@ -82,7 +100,29 @@ def restore_tnn(ckpt: "Checkpointer", cfg, step: Optional[int] = None,
             f"{got!r}, not this run's {want!r}: point it at the matching "
             f"run or a fresh directory")
     tree, extra = ckpt.restore(step, tnn_abstract_state(cfg))
+    if mesh is not None:
+        return state_to_local(tree, cfg, mesh), extra
     return state_from_numpy(tree, cfg, device), extra
+
+
+def save_tnn(ckpt: "Checkpointer", cfg, step: int, state, extra: Dict[str, Any],
+             *, mesh=None, block: bool = False) -> None:
+    """Save a TNN state (the port's form; any further leaf, such as
+    ``vote_table``, as it is) as ``step``. With a ``mesh`` the state holds
+    the rank's local weights: every rank gathers the logical weights (a
+    collective) and rank 0 alone writes; with ``block`` every rank waits
+    until the step is in place."""
+    if mesh is not None:
+        from repro_torch.core.network import logical_params, params_to_tree
+
+        state = dict(state, params=params_to_tree(
+            logical_params(state["params"], cfg, mesh)))
+        if mesh.is_main:
+            ckpt.save(step, state, extra=extra, block=block)
+        if block:
+            mesh.barrier()
+        return
+    ckpt.save(step, state, extra=extra, block=block)
 
 
 def _leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:

@@ -1,7 +1,8 @@
 """Weights and training states across the two packages: the reference's
 per-layer weights (numpy arrays, a list of them, or its ``{"layer_NN": ...}``
-tree) to the port's int8 tensors, and back; and its training state (params
-tree, key data, wave counter) to the port's state, and back."""
+tree) to the port's int8 tensors, and back; its training state (params
+tree, key data, wave counter) to the port's state, and back; and a state
+into a mesh rank's local, site-padded shard, and back through the gather."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Union
@@ -10,7 +11,9 @@ import numpy as np
 import torch
 
 from repro_torch import random as _random
-from repro_torch.core.network import NetworkConfig
+from repro_torch.core.network import (
+    NetworkConfig, local_tree, logical_params, params_to_tree,
+)
 from repro_torch.device import resolve_device
 
 ArraysOrTree = Union[Sequence[np.ndarray], Dict[str, np.ndarray]]
@@ -88,3 +91,26 @@ def state_to_numpy(state: Dict) -> Dict:
             out[name] = np.asarray(v.detach().to("cpu").numpy()
                                    if isinstance(v, torch.Tensor) else v, np.float32)
     return out
+
+
+def params_from_local(params: Sequence[torch.Tensor], cfg: NetworkConfig,
+                      mesh) -> List[np.ndarray]:
+    """A rank's local weights -> the logical per-layer int8 numpy arrays,
+    through the gather over the model axis (a collective: every rank calls
+    it)."""
+    return params_to_numpy(logical_params(params_to_tree(params), cfg, mesh))
+
+
+def state_to_local(tree: Dict, cfg: NetworkConfig, mesh) -> Dict:
+    """A training state as numpy (as :func:`state_from_numpy` takes it) ->
+    this rank's local state: site-padded weight slices on the mesh's
+    device, the key and wave counter replicated on the host."""
+    state = state_from_numpy(tree, cfg, mesh.device)
+    return dict(state, params=local_tree(state["params"], cfg, mesh))
+
+
+def state_from_local(state: Dict, cfg: NetworkConfig, mesh) -> Dict:
+    """The inverse (a collective): the reference's numpy form of a rank's
+    local state, its weights gathered to the logical extent."""
+    return state_to_numpy(dict(state, params=params_to_tree(
+        logical_params(state["params"], cfg, mesh))))

@@ -83,13 +83,22 @@ def layer_forward(x: torch.Tensor, w: torch.Tensor, cfg: LayerConfig) -> torch.T
     return wta_inhibit(z, spec).transpose(0, 1)
 
 
-def layer_uniforms(key, cfg: LayerConfig, B: int, device="cuda") -> torch.Tensor:
+def layer_uniforms(key, cfg: LayerConfig, B: int, device="cuda",
+                   window: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
     """One wave's STDP uniforms for a whole layer: (n_cols, 2, B, p, q)
     float32 in [0, 1), u[:, 0] = up and u[:, 1] = down, the reference's
     draws bit for bit: column ``c`` is ``uniform(split(key, n_cols)[c],
     (2, B, p, q))``. On the card one ``kernels.threefry`` launch draws them
-    there; on the CPU its plain version does."""
+    there; on the CPU its plain version does.
+
+    ``window = (col0, n_local, row0, b_local)`` draws only one mesh rank's
+    part, (n_local, 2, b_local, p, q): the columns from ``col0`` (1.0 past
+    ``n_cols``, the pad sites) and the rows from ``row0`` of the global
+    draw over ``B`` rows (``kernels.threefry.window_uniforms``)."""
     p, q = cfg.column.p, cfg.column.q
+    if window is not None:
+        return _kthreefry.window_uniforms(key, cfg.n_cols, B, (p, q), window,
+                                          device=device)
     return _kthreefry.layer_uniforms(key, cfg.n_cols, (2, B, p, q),
                                      device=device)
 

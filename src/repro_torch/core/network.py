@@ -12,9 +12,16 @@ backends; all four are bit-exact with each other.
 Training follows the reference's key chain (``repro_torch.random``, bit for
 bit ``jax.random``): ``init_train_state`` -> ``make_train_step`` /
 ``make_superbatch_step`` -> ``network_train_wave``, whose STDP uniforms the
-threefry kernel draws on the card. The reference's counter-form
-``network_train_step`` exists so data shards can sum their counters; the
-port is unsharded, and ``network_train_wave`` is the same step bit for bit.
+threefry kernel draws on the card.
+
+On a (data, model) mesh (``launch.mesh.Mesh2D``; ``network_mesh_spec``) the
+step factories take ``mesh=`` and run the counter-form
+``network_train_step`` on the rank's local batch rows and site slice: each
+rank draws only its own window of the STDP uniforms and all-reduces each
+layer's int32 counters over the data axis before one saturating apply. The
+cascade is same-site, so the model axis needs no collective, and integer
+sums do not depend on their order: every factorization gives the unmeshed
+bits.
 
 Learning while serving (``make_online_step`` / ``make_online_superbatch_step``)
 runs that train step on a shadow state and classifies the same volley under
@@ -36,6 +43,7 @@ from repro_torch.core.layer import (
     extract_patches,
     init_layer,
     layer_forward,
+    layer_stdp_net,
     layer_step,
     layer_uniforms,
 )
@@ -246,23 +254,98 @@ def _sum_only(cfg: NetworkConfig) -> bool:
     return all(l.column.stdp.batch_reduce == "sum" for l in cfg.layers)
 
 
-def _draw_uniforms(rng, cfg: NetworkConfig, B: int, device) -> List[torch.Tensor]:
+def _draw_uniforms(rng, cfg: NetworkConfig, B: int, device,
+                   spec: Optional[_kpad.MeshSpec] = None) -> List[torch.Tensor]:
     """Every layer's wave uniforms from the wave key, as the reference splits
-    it: one key per layer, then one per column inside ``layer_uniforms``."""
+    it: one key per layer, then one per column inside ``layer_uniforms``.
+    With a mesh's ``spec`` each layer draws only this rank's window of the
+    global (C, 2, B, p, q) uniforms."""
     keys = _random.split(rng, len(cfg.layers))
-    return [layer_uniforms(k, lcfg, B, device) for k, lcfg in zip(keys, cfg.layers)]
+    return [_layer_draw(k, lcfg, B, device, spec) for k, lcfg in zip(keys, cfg.layers)]
 
 
-def _fused_train(x, params, cfg: NetworkConfig, uniforms):
-    """The whole learning wave as one wave-kernel launch; the counters are
-    applied once per layer."""
+def _layer_draw(key, lcfg, B: int, device, spec: Optional[_kpad.MeshSpec]):
+    """One layer's uniforms: the whole layer, or ``spec``'s rank window."""
+    window = (None if spec is None
+              else spec.uniform_window(lcfg.n_cols, B // spec.n_data))
+    return layer_uniforms(key, lcfg, B, device, window=window)
+
+
+def _fused_train(x, params, cfg: NetworkConfig, uniforms,
+                 reduce: Callable[[torch.Tensor], torch.Tensor] = lambda net: net):
+    """The whole learning wave as one wave-kernel launch over x's sites; each
+    layer's counters go through ``reduce`` (a mesh's sum over "data") and
+    are applied once."""
     plan = _kpad.network_plan(cfg, x.shape[0], n_cols=x.shape[1])
     zs, nets = _ktw.wave_train(
         x, tuple(params), tuple((u[:, 0], u[:, 1]) for u in uniforms),
         plan=plan)
     return (list(zs),
-            [apply_net(w, net, lcfg.column.wave)
+            [apply_net(w, reduce(net), lcfg.column.wave)
              for w, net, lcfg in zip(params, nets, cfg.layers)])
+
+
+def network_mesh_spec(cfg: NetworkConfig, mesh) -> _kpad.MeshSpec:
+    """The sharding contract of every step factory, the engine and the
+    trainer: ``mesh``'s (data, model) factorization (``None`` = unsharded)
+    bound to the config's site count and this rank. Model-axis sharding
+    slices the column fabric, so it needs one site count across the
+    cascade."""
+    spec = _kpad.MeshSpec.from_mesh(mesh, cfg.layers[0].n_cols)
+    if spec.n_model > 1:
+        cols = {l.n_cols for l in cfg.layers}
+        if len(cols) != 1:
+            raise ValueError(
+                f"model-axis sharding slices the site/column axis and needs "
+                f"one site count across the cascade, got {sorted(cols)} — "
+                f"serve heterogeneous-site networks with model=1")
+    return spec
+
+
+def network_train_step(
+    x: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    cfg: NetworkConfig,
+    rng,
+    *,
+    mesh=None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """One gamma wave of online STDP in counter form, bit-exact with
+    :func:`network_train_wave`, as the reference's ``network_train_step``.
+
+    x: (b, C_loc, p) spike times: with a ``mesh`` the rank's local batch
+    rows and (padded) site slice, else the whole batch. Each layer draws
+    only this rank's window of the global (C, 2, B = b x n_data, p, q)
+    uniforms (``layer_uniforms(window=...)``: the same per-layer and
+    per-column keys, pad sites 1.0), computes its local int32 net counters
+    and all-reduces them over the data axis before one saturating apply.
+    Under "fused" the wave kernel runs over the local sites; otherwise each
+    layer runs its forward and its STDP kernel (or plain counters) in net
+    form. Returns (per-layer post-WTA spike times, new per-layer weights).
+    """
+    spec = network_mesh_spec(cfg, mesh)
+    b_local, c_local = x.shape[0], x.shape[1]
+    if mesh is not None and spec.n_model > 1 and c_local != spec.local_cols:
+        raise ValueError(f"x holds {c_local} sites, the rank's slice is "
+                         f"{spec.local_cols}")
+    B = b_local * spec.n_data
+    rank_spec = None if mesh is None else spec
+
+    def reduce(net):
+        return net if mesh is None else mesh.all_reduce_sum(net, "data")
+
+    if _uses_fused_wave(cfg) and _sum_only(cfg):
+        return _fused_train(x, params, cfg,
+                            _draw_uniforms(rng, cfg, B, x.device, rank_spec), reduce)
+    new_params, outs = [], []
+    for w, lcfg, k in zip(params, cfg.layers, _random.split(rng, len(cfg.layers))):
+        z = layer_forward(x, w, lcfg)
+        u = _layer_draw(k, lcfg, B, x.device, rank_spec)
+        net = reduce(layer_stdp_net(x, z, w, lcfg, u[:, 0], u[:, 1]))
+        new_params.append(apply_net(w, net, lcfg.column.wave))
+        outs.append(z)
+        x = z
+    return outs, new_params
 
 
 # ---------------------------------------------------------------------------
@@ -287,17 +370,24 @@ def network_train_superbatch(
     params: Sequence[torch.Tensor],
     cfg: NetworkConfig,
     keys_k: torch.Tensor,
+    *,
+    mesh=None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K consecutive learning waves, wave ``i`` on ``(x_k[i], keys_k[i])``:
-    K :func:`network_train_wave` calls, as the reference's ``lax.scan``.
-    Returns (per-layer z stacks ((K, B, C, q_i) each), final weights).
-    Only the "sum" form: the reference's superbatch runs the counter form."""
+    K :func:`network_train_wave` calls (with a ``mesh``, K meshed
+    :func:`network_train_step` calls on the local windows), as the
+    reference's ``lax.scan``. Returns (per-layer z stacks ((K, B, C, q_i)
+    each), final weights). Only the "sum" form: the reference's superbatch
+    runs the counter form."""
     for l in cfg.layers:
         l.column.stdp.require_counter_form()
     params = list(params)
     outs: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
     for x, key in zip(x_k, keys_k):
-        zs, params = network_train_wave(x, params, cfg, key)
+        if mesh is None:
+            zs, params = network_train_wave(x, params, cfg, key)
+        else:
+            zs, params = network_train_step(x, params, cfg, key, mesh=mesh)
         for acc, z in zip(outs, zs):
             acc.append(z)
     return [torch.stack(acc) for acc in outs], params
@@ -314,22 +404,60 @@ TrainState = Dict[str, object]
 TrainStep = Callable[[TrainState, torch.Tensor], Tuple[TrainState, torch.Tensor]]
 
 
-def make_train_step(cfg: NetworkConfig) -> TrainStep:
+def local_param_cols(cfg: NetworkConfig, mesh) -> Optional[int]:
+    """The site extent of a rank's weights, as :func:`params_from_tree`
+    takes it: the model shard's slice when the model axis shards the
+    sites, else the config's (``None``)."""
+    spec = network_mesh_spec(cfg, mesh)
+    return spec.local_cols if spec.n_model > 1 else None
+
+
+def local_tree(tree: Dict[str, torch.Tensor], cfg: NetworkConfig, mesh
+               ) -> Dict[str, torch.Tensor]:
+    """A global params tree -> this mesh rank's: every layer's site slice,
+    padded, as new tensors (the tree itself without a mesh)."""
+    if mesh is None:
+        return tree
+    spec = network_mesh_spec(cfg, mesh)
+    return params_to_tree(spec.local_weights(params_from_tree(tree, cfg)))
+
+
+def logical_params(tree: Dict[str, torch.Tensor], cfg: NetworkConfig,
+                   mesh=None) -> List[torch.Tensor]:
+    """A rank's params tree -> the logical per-layer weights, gathered over
+    the model axis on a mesh (a collective: every rank calls it)."""
+    ps = params_from_tree(tree, cfg, n_cols=local_param_cols(cfg, mesh))
+    if mesh is None:
+        return ps
+    spec = network_mesh_spec(cfg, mesh)
+    return [mesh.gather_sites(w, spec) for w in ps]
+
+
+def make_train_step(cfg: NetworkConfig, mesh=None) -> TrainStep:
     """The production train step ``(state, x) -> (state, z)``, as the
-    reference's ``make_train_step`` (unsharded).
+    reference's ``make_train_step``.
 
     ``state`` is ``{"params": {"layer_NN": int8}, "rng": (2,) uint32 key,
     "wave": int32}``; ``x`` is one encoded wave batch (B, C, p) on the
     weights' device. The key chain is the reference's: ``key, sub =
     split(state["rng"])``, the wave runs on ``sub``. The weights are updated
     in place (the reference donates the state), so callers keep only the
-    returned state. ``z`` is the last layer's post-WTA spike times."""
+    returned state. ``z`` is the last layer's post-WTA spike times.
+
+    With a ``mesh`` the step takes and returns the rank's LOCAL state
+    (site-padded weight slices; the key and wave are replicated) and its
+    local x and z windows (``MeshSpec.local_spikes``), and runs the meshed
+    :func:`network_train_step`: the same bits under any factorization."""
     _require_sum(cfg, "make_train_step")
+    n_cols = local_param_cols(cfg, mesh)
 
     def step(state: TrainState, x: torch.Tensor):
-        params = params_from_tree(state["params"], cfg)
+        params = params_from_tree(state["params"], cfg, n_cols=n_cols)
         key, sub = _random.split(state["rng"])
-        outs, new_params = network_train_wave(x, params, cfg, sub)
+        if mesh is None:
+            outs, new_params = network_train_wave(x, params, cfg, sub)
+        else:
+            outs, new_params = network_train_step(x, params, cfg, sub, mesh=mesh)
         _update_in_place(params, new_params)
         return {"params": state["params"], "rng": key,
                 "wave": state["wave"] + 1}, outs[-1]
@@ -337,20 +465,23 @@ def make_train_step(cfg: NetworkConfig) -> TrainStep:
     return step
 
 
-def make_superbatch_step(cfg: NetworkConfig) -> TrainStep:
+def make_superbatch_step(cfg: NetworkConfig, mesh=None) -> TrainStep:
     """The K-wave train step ``(state, x_k) -> (state, z_k)``, as the
-    reference's ``make_superbatch_step`` (unsharded): ``x_k`` is (K, B, C, p)
-    and K is read from its shape; the per-wave keys are pre-split by
+    reference's ``make_superbatch_step``: ``x_k`` is (K, B, C, p) and K is
+    read from its shape; the per-wave keys are pre-split by
     :func:`superbatch_keys`, so the result equals K :func:`make_train_step`
     calls bit for bit; the weights are updated in place and the wave counter
-    advances by K. ``z_k`` stacks the last layer's spike times per wave."""
+    advances by K. ``z_k`` stacks the last layer's spike times per wave.
+    With a ``mesh``, local state and windows as :func:`make_train_step`'s."""
     _require_sum(cfg, "make_superbatch_step")
+    n_cols = local_param_cols(cfg, mesh)
 
     def step(state: TrainState, x_k: torch.Tensor):
         k = x_k.shape[0]
-        params = params_from_tree(state["params"], cfg)
+        params = params_from_tree(state["params"], cfg, n_cols=n_cols)
         key, subs = superbatch_keys(state["rng"], k)
-        outs, new_params = network_train_superbatch(x_k, params, cfg, subs)
+        outs, new_params = network_train_superbatch(x_k, params, cfg, subs,
+                                                    mesh=mesh)
         _update_in_place(params, new_params)
         return {"params": state["params"], "rng": key,
                 "wave": state["wave"] + k}, outs[-1]
@@ -389,9 +520,10 @@ def _require_sum(cfg: NetworkConfig, what: str) -> None:
         l.column.stdp.require_sum(what)
 
 
-def make_online_step(cfg: NetworkConfig) -> OnlineStep:
+def make_online_step(cfg: NetworkConfig, mesh=None) -> OnlineStep:
     """The learn-while-serving step ``(serve_params, state, x) -> (state,
-    z_serve)``, as the reference's ``make_online_step`` (unsharded).
+    z_serve)``, as the reference's ``make_online_step``. With a ``mesh``
+    the serving weights, the state, x and z are the rank's local windows.
 
     The shadow half is :func:`make_train_step`'s body on ``state`` (the same
     key split, the weights updated in place, the wave counter + 1), so N
@@ -401,7 +533,7 @@ def make_online_step(cfg: NetworkConfig) -> OnlineStep:
     still in flight. Pad rows (spike time T) fire nothing and learn
     nothing."""
     _require_sum(cfg, "make_online_step")
-    train = make_train_step(cfg)
+    train = make_train_step(cfg, mesh)
 
     def step(serve_params, state: TrainState, x: torch.Tensor):
         state, _ = train(state, x)
@@ -410,14 +542,15 @@ def make_online_step(cfg: NetworkConfig) -> OnlineStep:
     return step
 
 
-def make_online_superbatch_step(cfg: NetworkConfig) -> OnlineStep:
+def make_online_superbatch_step(cfg: NetworkConfig, mesh=None) -> OnlineStep:
     """The K-wave form of :func:`make_online_step`: ``(serve_params, state,
     x_k) -> (state, z_k)`` with ``x_k`` (K, B, C, p). The shadow learns
     through :func:`make_superbatch_step` (the :func:`superbatch_keys`
     pre-split, wave counter + K), so it equals K online steps; the K waves
-    are classified under the one ``serve_params``."""
+    are classified under the one ``serve_params``; with a ``mesh``, local
+    windows as :func:`make_online_step`'s."""
     _require_sum(cfg, "make_online_superbatch_step")
-    train = make_superbatch_step(cfg)
+    train = make_superbatch_step(cfg, mesh)
 
     def step(serve_params, state: TrainState, x_k: torch.Tensor):
         state, _ = train(state, x_k)
@@ -435,7 +568,9 @@ def params_from_tree(
     tree: Dict[str, torch.Tensor], cfg: NetworkConfig,
     n_cols: Optional[int] = None,
 ) -> List[torch.Tensor]:
-    """Inverse of :func:`params_to_tree`; validates per-layer shapes."""
+    """Inverse of :func:`params_to_tree`; validates per-layer shapes.
+    ``n_cols`` overrides the expected site extent: on a model-sharded mesh a
+    rank holds a local (padded) site slice of every layer's weights."""
     params = []
     for i, lcfg in enumerate(cfg.layers):
         key = f"layer_{i:02d}"

@@ -22,6 +22,20 @@
 //   out[(c * B + b) * n + j] = the float of j under img_key(c, b)
 // each (column, image) row with its own counter from 0.
 //
+// A third entry draws one rank's WINDOW of a layer's (n_cols, 2, B, p, q)
+// draw on a (data, model) mesh, and nothing else: local columns
+// c = col0 + cl (cl < n_local) and batch rows row0 .. row0 + b_local - 1, as
+// the reference slices its global draw per shard (shard_u,
+// src/repro/core/network.py:477-486). With pq = p * q and
+// m = 2 * b_local * pq floats per local column:
+//   s = jl / (b_local * pq),  r = jl % (b_local * pq)
+//   out[cl, jl] = the float of counter s * B * pq + row0 * pq + r under
+//                 col_key(c)                     if c < n_cols
+//               = 1.0 (a pad site: u < p never fires)   otherwise
+// so within each of the two planes the window is one contiguous run of the
+// column's counters. Its bound and design are the first entry's, on
+// n_local * m floats.
+//
 // Bound on this card (H100 SXM): integer issue, not bytes. One threefry call
 // per float: 20 rounds of (add, rotate, xor), 5 key injections of two adds,
 // 2 initial adds, then xor, shift and or. The 43 rotates, xors, shift and or
@@ -140,6 +154,69 @@ tnn_threefry_nested_kernel(float* __restrict__ out, uint32_t key0,
   }
 }
 
+// One thread's 4 consecutive window floats jl0 .. jl0 + 3 (< m) of a local
+// column keyed (k0, k1): the counter of each is mapped from its plane and
+// row, as the header says; one 16-byte store where aligned.
+__device__ __forceinline__ void tnn_draw4_window(
+    float* __restrict__ out, long long base, long long jl0, long long m,
+    long long plane, long long skip, long long offset, uint32_t k0,
+    uint32_t k1) {
+  float v[TNN_TF_PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < TNN_TF_PER_THREAD; ++e) {
+    const long long jl = jl0 + e;
+    const long long s = jl / plane;
+    const unsigned long long j = (unsigned long long)(jl + s * skip + offset);
+    uint32_t a = (uint32_t)(j >> 32), b = (uint32_t)j;
+    tnn_threefry2x32(k0, k1, a, b);
+    v[e] = tnn_unit_float(a ^ b);
+  }
+  if (jl0 + TNN_TF_PER_THREAD <= m && (base & 3) == 0) {
+    *reinterpret_cast<float4*>(out + base) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < TNN_TF_PER_THREAD; ++e)
+      if (jl0 + e < m) out[base + e] = v[e];
+  }
+}
+
+// The window draw: grid (chunks of a local column, local columns); a block's
+// thread 0 derives its column's key once. plane = b_local * pq floats of one
+// half (up or down); skip = (B - b_local) * pq counters lie between the two
+// halves' runs; offset = row0 * pq is where the window's rows begin.
+__global__ void __launch_bounds__(TNN_TF_MAX_THREADS)
+tnn_threefry_window_kernel(float* __restrict__ out, uint32_t key0,
+                           uint32_t key1, int n_cols, int col0, int n_local,
+                           long long plane, long long skip, long long offset) {
+  __shared__ uint32_t col_key[2];
+  const long long m = 2 * plane;
+  const long long jl0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * TNN_TF_PER_THREAD;
+  for (int cl = blockIdx.y; cl < n_local; cl += gridDim.y) {
+    const int c = col0 + cl;
+    if (c >= n_cols) {  // a pad site: no key, every float 1.0
+      if (jl0 < m) {
+        const long long base = (long long)cl * m + jl0;
+#pragma unroll
+        for (int e = 0; e < TNN_TF_PER_THREAD; ++e)
+          if (jl0 + e < m) out[base + e] = 1.0f;
+      }
+      continue;
+    }
+    __syncthreads();  // the previous column's key is no longer read
+    if (threadIdx.x == 0) {
+      uint32_t a = 0u, b = (uint32_t)c;
+      tnn_threefry2x32(key0, key1, a, b);
+      col_key[0] = a;
+      col_key[1] = b;
+    }
+    __syncthreads();
+    if (jl0 >= m) continue;
+    tnn_draw4_window(out, (long long)cl * m + jl0, jl0, m, plane, skip,
+                     offset, col_key[0], col_key[1]);
+  }
+}
+
 // The bare hash of n counter pairs under one key: the known-answer check of
 // tnn_threefry2x32 on the card (no path launches it).
 __global__ void tnn_threefry_hash_kernel(const uint32_t* __restrict__ x0,
@@ -191,6 +268,30 @@ int tnn_threefry_nested_launch(float* out, unsigned key0, unsigned key1,
   const dim3 grid((unsigned)chunks, (unsigned)(rows < 65535 ? rows : 65535));
   tnn_threefry_nested_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       out, key0, key1, n_cols, n_rows, n);
+  return (int)cudaGetLastError();
+}
+
+// Enqueue one rank's window of a layer's draw: (n_local, 2, b_local, pq)
+// float32 into `out` (contiguous, 16-byte aligned), local column cl being
+// the layer's column col0 + cl of n_cols (1.0 at and beyond n_cols), rows
+// row0 .. row0 + b_local - 1 of B; returns cudaGetLastError().
+int tnn_threefry_window_launch(float* out, unsigned key0, unsigned key1,
+                               int n_cols, int col0, int n_local, long long B,
+                               long long row0, long long b_local, long long pq,
+                               int threads, void* stream) {
+  if (n_cols < 1 || col0 < 0 || n_local < 1 || b_local < 1 || pq < 1 ||
+      row0 < 0 || row0 + b_local > B || threads < 32 || threads % 32 ||
+      threads > TNN_TF_MAX_THREADS || ((unsigned long long)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long plane = b_local * pq;
+  const long long per_block = (long long)threads * TNN_TF_PER_THREAD;
+  const long long chunks = (2 * plane + per_block - 1) / per_block;
+  if (chunks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)chunks,
+                  (unsigned)(n_local < 65535 ? n_local : 65535));
+  tnn_threefry_window_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      out, key0, key1, n_cols, col0, n_local, plane, (B - b_local) * pq,
+      row0 * pq);
   return (int)cudaGetLastError();
 }
 

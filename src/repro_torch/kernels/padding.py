@@ -10,7 +10,8 @@ The no-op pad encodings are the reference's:
 The Hopper wave kernel masks a ragged batch itself and needs no padding;
 :class:`PadPlan` still records the logical extents, and the serving engine
 pads partial waves of requests to its fixed slot count through
-:func:`pad_batch_rows`. Block sizes are this port's own defaults: the
+:func:`pad_batch_rows`. :class:`MeshSpec` cuts a (data, model) mesh rank's
+windows out of the global tensors with the same encodings. Block sizes are this port's own defaults: the
 reference's tuned block cache (``benchmarks/tuned_blocks.json``) was tuned
 for other hardware and is not read.
 """
@@ -109,6 +110,132 @@ def pad_batch_rows(x: torch.Tensor, rows: int, T: int) -> torch.Tensor:
     if k > rows:
         raise ValueError(f"batch of {k} rows exceeds padded extent {rows}")
     return _pad_axis(x, 0, rows - k, T)
+
+
+# ---------------------------------------------------------------------------
+# The (data, model) mesh: one rank's windows of the global tensors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """The sharding contract of every meshed step, the engine and the
+    trainer, as the reference's ``MeshSpec``: the shards on each axis, the
+    logical site count padded up to a model-axis multiple with the no-op
+    encodings (pad spikes = ``T``, pad weights = 0, pad uniforms = 1.0, so a
+    pad site starts no ramp, wins no WTA and fires no STDP case: its weights
+    stay 0 and slicing it off is lossless), and THIS rank's place on the
+    grid. Where the reference hands PartitionSpecs to ``shard_map``, a rank
+    here cuts its own windows out of the global tensors: batch rows
+    ``[d * b_local, (d + 1) * b_local)`` and sites ``[m * local_cols,
+    (m + 1) * local_cols)`` of the padded extent; :meth:`assemble` rebuilds
+    the global, unpadded tensor from every rank's window."""
+
+    n_data: int = 1
+    n_model: int = 1
+    n_cols: int = 0                       # logical (global) site count
+    data_index: int = 0                   # this rank's d
+    model_index: int = 0                  # this rank's m
+
+    @classmethod
+    def from_mesh(cls, mesh, n_cols: int) -> "MeshSpec":
+        """The spec of ``mesh`` (a ``launch.mesh.Mesh2D``; ``None`` is the
+        unsharded spec) for ``n_cols`` logical sites, at this rank."""
+        if mesh is None:
+            return cls(n_cols=n_cols)
+        return cls(n_data=mesh.n_data, n_model=mesh.n_model, n_cols=n_cols,
+                   data_index=mesh.data_index, model_index=mesh.model_index)
+
+    # -- site geometry -------------------------------------------------------
+
+    @property
+    def padded_cols(self) -> int:
+        """Site extent padded up to a model-axis multiple."""
+        return pad_to(self.n_cols, self.n_model)
+
+    @property
+    def local_cols(self) -> int:
+        """Sites per model shard."""
+        return self.padded_cols // self.n_model
+
+    @property
+    def site_pad(self) -> int:
+        """No-op pad sites appended so the model axis divides evenly."""
+        return self.padded_cols - self.n_cols
+
+    @property
+    def site0(self) -> int:
+        """This rank's first (padded) site."""
+        return self.model_index * self.local_cols
+
+    def local_rows(self, rows: int) -> int:
+        """Rows per data shard of a ``rows``-row batch."""
+        if rows % self.n_data:
+            raise ValueError(f"batch of {rows} rows not divisible by data "
+                             f"axis size {self.n_data}")
+        return rows // self.n_data
+
+    def uniform_window(self, layer_cols: int, b_local: int) -> Tuple[int, int, int, int]:
+        """``(col0, n_local, row0, b_local)`` of this rank's STDP uniforms
+        for a layer of ``layer_cols`` sites: the local sites when the model
+        axis shards them, else the whole layer; the local rows."""
+        if self.n_model > 1:
+            return (self.site0, self.local_cols, self.data_index * b_local, b_local)
+        return (0, layer_cols, self.data_index * b_local, b_local)
+
+    # -- no-op site padding / slicing ------------------------------------------
+
+    def pad_spike_sites(self, x: torch.Tensor, T: int, *, axis: int) -> torch.Tensor:
+        """Pad the site axis of encoded spikes with ``T`` ("no spike")."""
+        return _pad_axis(x, axis, self.site_pad, T)
+
+    def slice_sites(self, arr: torch.Tensor, *, axis: int) -> torch.Tensor:
+        """Drop the pad sites again (inverse of the pad_* helpers)."""
+        if not self.site_pad:
+            return arr
+        return arr.narrow(axis, 0, self.n_cols)
+
+    def pad_weights(self, params) -> list:
+        """Pad every layer's site axis (axis 0) with 0-weight no-op sites."""
+        return [_pad_axis(w, 0, self.site_pad, 0) for w in params]
+
+    # -- this rank's windows ---------------------------------------------------
+
+    def local_weights(self, params) -> list:
+        """This rank's site slice of every layer's (global, logical) weights,
+        padded with 0: new contiguous tensors the train steps may update in
+        place (a rank never holds a view of the global tensor)."""
+        if self.n_model > 1:
+            params = [w.narrow(0, self.site0, self.local_cols)
+                      for w in self.pad_weights(params)]
+        return [w.clone(memory_format=torch.contiguous_format) for w in params]
+
+    def local_spikes(self, x: torch.Tensor, T: int, *, row_axis: int = 0,
+                     site_axis: int = 1) -> torch.Tensor:
+        """This rank's (rows, sites) window of global encoded spikes, the
+        sites padded with ``T``."""
+        b = self.local_rows(x.shape[row_axis])
+        x = x.narrow(row_axis, self.data_index * b, b)
+        if self.n_model > 1:
+            x = self.pad_spike_sites(x, T, axis=site_axis).narrow(
+                site_axis, self.site0, self.local_cols)
+        return x.contiguous()
+
+    def assemble(self, pieces, *, row_axis: int, site_axis: int) -> torch.Tensor:
+        """The global, unpadded tensor from every rank's window, ``pieces``
+        in rank order (rank ``d * n_model + m`` holds window (d, m))."""
+        if len(pieces) != self.n_data * self.n_model:
+            raise ValueError(f"{len(pieces)} windows for a "
+                             f"{self.n_data}x{self.n_model} mesh")
+        rows = [torch.cat(pieces[d * self.n_model:(d + 1) * self.n_model],
+                          dim=site_axis) for d in range(self.n_data)]
+        return self.slice_sites(torch.cat(rows, dim=row_axis), axis=site_axis)
+
+
+def pad_uniform_sites(u: torch.Tensor, padded_cols: int) -> torch.Tensor:
+    """Pad the leading site axis of per-layer STDP uniforms up to
+    ``padded_cols`` with the no-op 1.0 (``u < p`` never fires)."""
+    return _pad_axis(u, 0, padded_cols - u.shape[0], 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,20 @@ card's free memory, else report ``status="skip"`` with the bytes they would
 need. ``--device cpu`` runs the plain path at a toy size (``--sites``,
 ``--batch``).
 
-The reference's multi-pod mesh and its column-parallel variant need more
-than one card, and its LM architectures are not ported: those are refused.
+The reference's column-parallel variant (625 -> 640 sites, the sites over
+"model", the batch over "data") runs on a (data, model) process mesh,
+one rank per process under ``torchrun`` (``--colpar --colpar-mesh DxM``;
+``run_tnn_colpar_cell``): every rank builds the 640-site cell's global
+inputs, cuts its window and runs the meshed wave (``network_train_step``
+or the forward on its sites); the result adds the recorder's collectives
+(``collectives``, wire bytes by kind) and prices them in the roofline's
+collective term. Its file is ``tnn-mnist__<cell><variant>_colpar__<D>x<M>.json``.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.dryrun --colpar \
+        --colpar-mesh 2x2 --device cpu --batch 8 --out build/dryrun_cpu
+
+The reference's production meshes, 16x16 and 2x16x16, need 256 and 512
+cards, and its LM architectures are not ported: those are refused.
 """
 from __future__ import annotations
 
@@ -40,12 +52,14 @@ import torch
 
 from repro_torch import random as _random
 from repro_torch.core.network import (
-    NetworkConfig, init_network, network_forward, network_train_wave,
-    prototype_config,
+    NetworkConfig, init_network, network_forward, network_mesh_spec,
+    network_train_step, network_train_wave, prototype_config,
 )
 from repro_torch.device import resolve_device
 from repro_torch.roofline import analysis as RL
-from repro_torch.utils.tracing import read_counts, reset_counts
+from repro_torch.utils.tracing import (
+    collectives_recorded, read_counts, reset_counts,
+)
 
 TNN_CELLS = {
     # one gamma wave of unsupervised STDP learning over a global image batch
@@ -57,8 +71,10 @@ THETA = (20, 6)        # the reference's dry-run thresholds
 SITES = 625
 SEED = 0
 IMPLS = ("direct", "matmul", "pallas", "fused")
-MULTI_GPU = ("needs more than one card: ROADMAP Queue 1 item 5 (multi-GPU, "
-             "data x model) ports the mesh")
+MULTI_GPU = ("is the reference's production mesh (16x16 = 256 cards; "
+             "multi-pod 2x16x16 = 512): a process mesh of that size needs "
+             "that many cards; run --colpar on a DxM process mesh instead")
+COLPAR_SITES = 640     # the reference's column-parallel variant: 625 -> 640
 LM_ARCHS = ("the port runs the TNN prototype only; the LM architectures wait "
             "for ROADMAP Queue 1 item 6 (LM substrate)")
 
@@ -191,9 +207,11 @@ def run_tnn_cell(cell_name: str, multi_pod: bool = False, verbose: bool = True,
     receives the wave's inputs and outputs (``x``, ``params``, ``key``,
     ``zs`` and, learning, ``new_params``) and ``wave``, a function that
     runs the same wave again."""
-    if multi_pod or column_parallel:
-        raise ValueError(f"{'multi_pod' if multi_pod else 'column_parallel'} "
-                         f"{MULTI_GPU}")
+    if multi_pod:
+        raise ValueError(f"multi_pod {MULTI_GPU}")
+    if column_parallel:
+        raise ValueError("column_parallel runs on a process mesh: "
+                         "run_tnn_colpar_cell(cell, mesh)")
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
     kind, B = TNN_CELLS[cell_name]
@@ -271,6 +289,88 @@ def run_tnn_cell(cell_name: str, multi_pod: bool = False, verbose: bool = True,
     return result
 
 
+def run_tnn_colpar_cell(cell_name: str, mesh, impl: str = "pallas", *,
+                        verbose: bool = True, sites: int = COLPAR_SITES,
+                        batch: Optional[int] = None,
+                        outputs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The reference's column-parallel variant of a cell on ``mesh`` (a
+    ``launch.mesh.Mesh2D``; every rank calls this): 640 sites over "model",
+    the batch over "data". Every rank builds the cell's global inputs
+    (:func:`cell_inputs`), cuts its window and runs one warm-up and one
+    timed wave on it: the meshed ``network_train_step`` (its counters
+    all-reduced over "data") or the forward on its sites. Returns the
+    reference's fields, this rank's ``wave_ms`` and ``launches``, and the
+    timed wave's ``collectives`` (the recorder's, priced by the ring model
+    into the roofline's collective term). ``outputs`` receives the global
+    ``x``, ``params`` and ``key``, the rank's ``zs`` windows and, learning,
+    its ``new_params`` slices, and ``spec``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
+    kind, B = TNN_CELLS[cell_name]
+    B = B if batch is None else int(batch)
+    dev = mesh.device
+    cfg = _tnn_variant_cfg(prototype_config(sites=sites, theta1=THETA[0],
+                                            theta2=THETA[1]), impl, False)
+    spec = network_mesh_spec(cfg, mesh)
+    mesh_name = f"{mesh.n_data}x{mesh.n_model}"
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    tag = (f"tnn-mnist x {cell_name}{variant_suffix(impl, False)}_colpar x "
+           f"{mesh_name} rank {mesh.rank} ({name})")
+    result: Dict[str, Any] = {
+        "arch": "tnn-mnist", "cell": cell_name, "mesh": mesh_name,
+        "column_parallel": True, "impl": impl, "gauss": False, "device": name,
+        "sites": sites, "batch": B, "theta": list(THETA), "rank": mesh.rank,
+        "backend": mesh.backend}
+    t0 = time.perf_counter()
+    try:
+        x, params, key = cell_inputs(cfg, B, dev)
+        T = cfg.layers[0].column.wave.T
+        x_loc = spec.local_spikes(x, T)
+        ps_loc = spec.local_weights(params)
+        if kind == "train":
+            def wave():
+                return network_train_step(x_loc, ps_loc, cfg, key, mesh=mesh)
+        else:
+            def wave():
+                return network_forward(x_loc, ps_loc, cfg), None
+        wave()
+        _sync(dev)
+        compile_s = time.perf_counter() - t0
+        reset_counts()
+        with collectives_recorded() as entries:
+            wave_ms, (zs, new_params) = _time_ms(wave, dev)
+        launches = read_counts()
+        stats = RL.collective_stats(entries)
+        works = _route_works(cfg, kind, impl, False, x_loc, ps_loc, zs)
+        total = sum((w for _, w in works), RL.Work())
+        roof = RL.from_counts(total.peak_ops(), total.bytes,
+                              model_flops(cfg, kind, B) / mesh.size,
+                              collective_bytes=stats.total_bytes,
+                              collectives=dict(stats.bytes_by_kind))
+        r = roof.report()
+        result.update(
+            status="ok", compile_s=round(compile_s, 2), wave_ms=wave_ms,
+            roofline=r, collectives=roof.collectives,
+            collective_counts=dict(stats.count_by_kind), launches=launches,
+            kernel_bound_ms=sum(w.bound()[0] for _, w in works))
+        if outputs is not None:
+            outputs.update(x=x, params=params, key=key, zs=zs,
+                           new_params=new_params, spec=spec, wave=wave)
+        if verbose and mesh.is_main:
+            print(f"[ok]   {tag}: wave {wave_ms:.3f} ms | collective "
+                  f"{stats.total_bytes:,} wire bytes "
+                  f"{ {k: v for k, v in roof.collectives.items() if v} } | "
+                  f"bottleneck={r['bottleneck']} t=({r['t_compute_s']:.2e},"
+                  f"{r['t_memory_s']:.2e},{r['t_collective_s']:.2e})s | "
+                  f"launches {launches}", flush=True)
+    except Exception as e:  # noqa: BLE001 - report, keep sweeping
+        result.update(status="error", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+        if verbose:
+            print(f"[ERR]  {tag}: {type(e).__name__}: {e}", flush=True)
+    return result
+
+
 def variants(cell_name: str, impls: Sequence[str]):
     """(impl, gauss) pairs of a cell: every impl, and for the learning cell
     each again in the "gauss" mode; the kernels' backends first, the plain
@@ -287,7 +387,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="all, or a comma list of " + ", ".join(TNN_CELLS))
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     ap.add_argument("--colpar", action="store_true",
-                    help="the reference's column-parallel variant (refused)")
+                    help="the reference's column-parallel variant, on the "
+                         "--colpar-mesh process mesh (under torchrun)")
+    ap.add_argument("--colpar-mesh", default="1x4", metavar="DxM",
+                    help="(data, model) process mesh of --colpar")
     ap.add_argument("--impl", default="pallas,fused",
                     help="comma list of " + ", ".join(IMPLS))
     ap.add_argument("--out", default="build/dryrun")
@@ -298,8 +401,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.arch != "tnn-mnist":
         ap.error(f"--arch {args.arch}: {LM_ARCHS}")
-    if args.mesh != "single" or args.colpar:
-        ap.error(f"{'--colpar' if args.colpar else '--mesh ' + args.mesh} {MULTI_GPU}")
+    if args.mesh != "single":
+        ap.error(f"--mesh {args.mesh} {MULTI_GPU}")
+    if args.colpar and "WORLD_SIZE" not in os.environ:
+        ap.error("--colpar runs one rank per process: start it with torchrun "
+                 "--nproc-per-node D*M (D x M = --colpar-mesh)")
     impls = args.impl.split(",")
     bad = [i for i in impls if i not in IMPLS]
     if bad:
@@ -310,6 +416,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             ap.error(f"--cell {c}: choose from {list(TNN_CELLS)}")
     os.makedirs(args.out, exist_ok=True)
     n = {"ok": 0, "skip": 0, "error": 0}
+    if args.colpar:
+        from repro_torch.launch.mesh import make_mesh_2d, parse_mesh
+
+        mesh = make_mesh_2d(*parse_mesh(args.colpar_mesh), device=args.device)
+        for cell_name in cells:
+            for impl in impls:
+                res = run_tnn_colpar_cell(cell_name, mesh, impl=impl,
+                                          batch=args.batch)
+                n[res["status"]] += 1
+                if mesh.is_main:
+                    fname = (f"tnn-mnist__{cell_name}{variant_suffix(impl, False)}"
+                             f"_colpar__{res['mesh']}.json")
+                    with open(os.path.join(args.out, fname), "w") as f:
+                        json.dump(res, f, indent=1)
+        if mesh.is_main:
+            print(f"\ncolumn-parallel dry run complete on rank 0: {n['ok']} ok, "
+                  f"{n['error']} errors")
+        return 1 if n["error"] else 0
     for cell_name in cells:
         for impl, gauss in variants(cell_name, impls):
             res = run_tnn_cell(cell_name, impl=impl, gauss=gauss,

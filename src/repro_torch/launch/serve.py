@@ -31,6 +31,12 @@ checkpoint's key and wave, and swap checkpoints go back to that directory:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tnn-mnist \
         --sites 16 --slots 8 --requests 64 --online-stdp --swap-every 4 \
         --device cpu
+
+``--mesh DxM`` serves on a (data, model) process mesh under ``torchrun
+--nproc-per-node D*M``: slots over "data" (``--slots`` rounds up to a
+multiple of D), sites over "model"; every rank classifies the gathered z,
+rank 0 prints (NCCL with one card per rank by default; ``--backend gloo``
+when ranks share a card, and on the CPU).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from repro_torch.core.network import (
 )
 from repro_torch.data.mnist_like import digits
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
 from repro_torch.serve.tnn_engine import ClassifyRequest, ServeStats, TNNEngine
 
 WARMUP_ROWS = 16
@@ -91,8 +98,27 @@ def warm_up(cfg, lab_imgs: np.ndarray, waves: int, device
     return params, spikes
 
 
+def resolve_slots(requested: int, ndata: int, say=print) -> int:
+    """Fit the requested slot count to the mesh's data axis by rounding UP
+    to the next multiple, never down (``say`` reports it); impossible values
+    raise."""
+    if ndata < 1:
+        raise ValueError(f"mesh data axis size must be >= 1, got {ndata}")
+    if requested < 1:
+        raise ValueError(f"--slots must be >= 1, got {requested}")
+    resolved = (requested + ndata - 1) // ndata * ndata
+    if resolved != requested:
+        say(f"[serve] --slots {requested} is not a multiple of the data "
+            f"axis size {ndata}; rounding UP to {resolved} slots")
+    return resolved
+
+
 def serve_tnn(args: argparse.Namespace) -> ServeReport:
-    device = resolve_device(args.device)
+    mesh = (make_mesh_2d(*parse_mesh(args.mesh), device=args.device,
+                         backend=args.backend) if args.mesh else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if mesh is None or mesh.is_main else (lambda *a, **k: None)
+    n_slots = resolve_slots(args.slots, mesh.n_data if mesh is not None else 1, say)
     cfg = launcher_network_config(args.sites, depth=args.depth,
                                   impl=args.impl, packed=args.packed)
     T = cfg.layers[0].column.wave.T
@@ -100,25 +126,26 @@ def serve_tnn(args: argparse.Namespace) -> ServeReport:
     # shadow state: forward it only when learning is on
     swap_every = args.swap_every if args.online_stdp else 0
     online = dict(superbatch_k=args.superbatch_k, online_stdp=args.online_stdp,
-                  swap_every=swap_every)
-    print(f"serving tnn-mnist ({cfg.n_neurons:,} neurons, impl={args.impl}) "
-          f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
-    lab_imgs, lab_labs = digits(max(128, 4 * args.slots), seed=1)
+                  swap_every=swap_every, mesh=mesh)
+    say(f"serving tnn-mnist ({cfg.n_neurons:,} neurons, impl={args.impl}) "
+        f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}, "
+        f"{describe(mesh)}")
+    lab_imgs, lab_labs = digits(max(128, 4 * n_slots), seed=1)
     lab_imgs = crop_field(lab_imgs, args.sites)
 
     warmup_spikes: List[List[int]] = []
     if args.from_ckpt:
         eng = TNNEngine.from_checkpoint(
-            args.from_ckpt, cfg, n_slots=args.slots, impl=args.impl,
+            args.from_ckpt, cfg, n_slots=n_slots, impl=args.impl,
             label_data=(lab_imgs, lab_labs), device=device, **online)
-        print(f"warm-started from {args.from_ckpt}" + (
+        say(f"warm-started from {args.from_ckpt}" + (
             f" at wave {int(eng.learn_state['wave'])}" if args.online_stdp else ""))
     else:
         params, warmup_spikes = warm_up(cfg, lab_imgs, args.train_waves, device)
-        eng = TNNEngine(cfg, params, n_slots=args.slots, impl=args.impl,
+        eng = TNNEngine(cfg, params, n_slots=n_slots, impl=args.impl,
                         device=device, **online)
         eng.fit(lab_imgs, lab_labs)
-    params = eng.params
+    params = eng.logical_params()
 
     test_imgs, test_labs = digits(args.requests, seed=2)
     test_imgs = crop_field(test_imgs, args.sites)
@@ -129,25 +156,27 @@ def serve_tnn(args: argparse.Namespace) -> ServeReport:
     results = {u: done[u].result for u in sorted(done)}
     acc = float(np.mean([results[u] == test_labs[u] for u in results]))
     first = encode_images(torch.from_numpy(
-        np.ascontiguousarray(test_imgs[:args.slots])).to(device), cfg)
+        np.ascontiguousarray(test_imgs[:n_slots])).to(device), cfg)
     served_spikes = spike_counts(network_forward(first, params, cfg), T)
 
     mode = "lock-step" if args.lockstep else "pipelined"
-    print(f"served {len(done)} images in {st.waves} waves / {st.wall_s:.3f}s "
+    say(f"served {len(done)} images in {st.waves} waves / {st.wall_s:.3f}s "
           f"({mode}), accuracy {acc:.1%}")
-    print(f"[serve-stats] {st.waves_per_s:.1f} waves/s  "
-          f"{st.images_per_s:.1f} images/s  p50 {st.p50_ms:.3f} ms  "
-          f"p95 {st.p95_ms:.3f} ms  occupancy {st.occupancy:.0%}")
-    print(f"[spikes] warm-up waves (per layer): {warmup_spikes}; first "
-          f"served wave (per layer): {served_spikes}")
+    say(f"[serve-stats] {st.waves_per_s:.1f} waves/s  "
+        f"{st.images_per_s:.1f} images/s  p50 {st.p50_ms:.3f} ms  "
+        f"p95 {st.p95_ms:.3f} ms  occupancy {st.occupancy:.0%}")
+    say(f"[spikes] warm-up waves (per layer): {warmup_spikes}; first "
+        f"served wave (per layer): {served_spikes}")
     versions = {u: done[u].version for u in sorted(done)}
     by_version = eng.stats_by_version()
+    if eng.ckpt is not None:   # the last swap's checkpoint is written by now
+        eng.ckpt.wait()
     if args.online_stdp:
-        print(f"[online-stdp] learned to wave {int(eng.learn_state['wave'])}, "
-              f"{eng.swaps} hot swap(s), now serving v{eng.version}")
+        say(f"[online-stdp] learned to wave {int(eng.learn_state['wave'])}, "
+            f"{eng.swaps} hot swap(s), now serving v{eng.version}")
         for ver, sv in by_version.items():
             hits = [results[u] == test_labs[u] for u in results if versions[u] == ver]
-            print(f"  v{ver}: {sv.requests} requests / {sv.waves} waves  "
+            say(f"  v{ver}: {sv.requests} requests / {sv.waves} waves  "
                   f"p50 {sv.p50_ms:.3f} ms  p95 {sv.p95_ms:.3f} ms  "
                   f"accuracy {float(np.mean(hits)):.1%}")
     return ServeReport(params=params, vote_table=eng.vote_table,
@@ -194,6 +223,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--swap-every", type=int, default=8,
                     help="learning waves between automatic hot swaps with "
                          "--online-stdp (0 = never automatically)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="(data, model) process mesh, e.g. --mesh 2x2 under "
+                         "torchrun --nproc-per-node 4: slots shard over data "
+                         "(rounded up to a multiple of D), sites over model")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's backend (default nccl on cuda, gloo on "
+                         "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 

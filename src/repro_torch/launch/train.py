@@ -8,6 +8,13 @@ Epochs of gamma waves (16 images a wave at 625 sites), vote-table evals and
 checkpoints on the reference's layout; running the same command again
 resumes from the directory's latest checkpoint. ``--smoke`` trains 16 sites
 on a small stream in seconds; ``--device cpu`` runs the plain PyTorch path.
+``--mesh DxM`` trains on a (data, model) process mesh, one process per
+rank under ``torchrun``: batch rows over "data", sites over "model", to the
+same bits as one process (NCCL with one card per rank by default; ``--backend
+gloo`` when ranks share a card, and on the CPU):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch tnn-mnist \
+        --smoke --mesh 2x2 --device cpu
 From the same flags the run equals ``python -m repro.launch.train --arch
 tnn-mnist`` of the JAX package bit for bit: weights, key, wave, vote table
 and accuracy, and the two packages restore each other's checkpoints.
@@ -15,6 +22,7 @@ and accuracy, and the two packages restore each other's checkpoints.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Any, Dict, Optional, Sequence
 
@@ -24,13 +32,17 @@ from repro_torch.configs.tnn_mnist import (
     DEFAULT_CKPT_DIR, launcher_network_config, train_config,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
 from repro_torch.train.tnn_trainer import TNNTrainer
 
 
 def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
     """Build the network and trainer from the flags, run it, return its
     summary (the trainer is ``summary["trainer"]``)."""
-    device = resolve_device(args.device)
+    mesh = (make_mesh_2d(*parse_mesh(args.mesh), device=args.device,
+                         backend=args.backend) if args.mesh else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
     sites = 16 if args.smoke and args.sites == 625 else args.sites
     cfg = launcher_network_config(sites, depth=args.depth, impl=args.impl,
                                   packed=args.packed)
@@ -40,15 +52,20 @@ def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
         superbatch_k=args.superbatch_k, eval_every=args.eval_every,
         ckpt_every=args.ckpt_every,
         metrics_path=os.path.join(ckpt_dir, "metrics.jsonl"))
+    if mesh is not None and tcfg.wave_batch % mesh.n_data:
+        tcfg = dataclasses.replace(
+            tcfg, wave_batch=mesh.n_data * max(tcfg.wave_batch // mesh.n_data, 1))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"training tnn-mnist ({cfg.n_neurons:,} neurons, "
-          f"{cfg.n_synapses:,} synapses, impl={args.impl}) on {where}: "
-          f"{tcfg.epochs} epoch(s) x {tcfg.waves_per_epoch} waves "
-          f"x batch {tcfg.wave_batch}")
-    trainer = TNNTrainer(cfg, tcfg, device=device)
+    if main_rank:
+        print(f"training tnn-mnist ({cfg.n_neurons:,} neurons, "
+              f"{cfg.n_synapses:,} synapses, impl={args.impl}) on {where}, "
+              f"{describe(mesh)}: {tcfg.epochs} epoch(s) x "
+              f"{tcfg.waves_per_epoch} waves x batch {tcfg.wave_batch}")
+    trainer = TNNTrainer(cfg, tcfg, device=device, mesh=mesh)
     summary = trainer.run()
-    print(summary)
+    if main_rank:
+        print(summary)
     return dict(summary, trainer=trainer)
 
 
@@ -82,6 +99,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="waves between vote-table evals (0 = epoch ends)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="waves between checkpoints (0 = epoch ends)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="(data, model) process mesh, e.g. --mesh 2x2 under "
+                         "torchrun --nproc-per-node 4: batch rows shard over "
+                         "data, sites over model")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's backend (default nccl on cuda, gloo on "
+                         "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 

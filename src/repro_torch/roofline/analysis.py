@@ -20,13 +20,15 @@ product on the int8 tensor cores (the profile's peak), compares and selects
 on the float32 lanes, the threefry hash on the INT32 lanes. A :class:`Work`
 prices each operation at its unit's rate, so its time stays a lower bound;
 :meth:`Work.peak_ops` turns that time back into operations at the peak rate
-for ``Roofline.flops``. Collectives wait for the multi-GPU port (no
-collective is parsed here).
+for ``Roofline.flops``. The collective term prices what a mesh run issued
+(``utils.tracing.collectives_recorded``) with the reference's ring model
+(:func:`collective_stats`, the formulas of its ``parse_collectives``) at the
+profile's inter-card rate.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,15 +135,82 @@ class Roofline:
         }
 
 
+# Bytes per element by the HLO type names the reference's report uses.
+HLO_DTYPES = {torch.bool: "pred", torch.int8: "s8", torch.uint8: "u8",
+              torch.int16: "s16", torch.bfloat16: "bf16", torch.float16: "f16",
+              torch.int32: "s32", torch.float32: "f32", torch.int64: "s64",
+              torch.float64: "f64"}
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute", "broadcast", "barrier")
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    bytes_by_kind: Dict[str, int]
+    count_by_kind: Dict[str, int]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+
+def wire_bytes(kind: str, result_bytes: int, g: int) -> int:
+    """Modelled wire bytes per participating card of one collective, the
+    reference's ring model (S = result bytes):
+
+        all-gather:         S * (g-1)/g   (the result is the gathered whole)
+        all-reduce:         2 * S * (g-1)/g (reduce-scatter + all-gather)
+        reduce-scatter:     S * (g-1)     (the result is one shard)
+        all-to-all:         S * (g-1)/g
+        collective-permute: S             (one hop)
+
+    and, for the two the port also issues: broadcast S * (g-1)/g (a ring
+    pipeline forwards the buffer once), barrier 0. A group of one moves
+    nothing."""
+    if g <= 1:
+        return 0
+    S = result_bytes
+    return {"all-gather": S * (g - 1) // g,
+            "all-reduce": 2 * S * (g - 1) // g,
+            "reduce-scatter": S * (g - 1),
+            "all-to-all": S * (g - 1) // g,
+            "collective-permute": S,
+            "broadcast": S * (g - 1) // g,
+            "barrier": 0}[kind]
+
+
+def entry_bytes(entry) -> int:
+    """Result bytes of one recorded collective."""
+    n = 1
+    for d in entry.shape:
+        n *= int(d)
+    return n * torch.empty((), dtype=entry.dtype).element_size()
+
+
+def collective_stats(entries) -> CollectiveStats:
+    """Wire bytes and counts by kind of the recorded collectives
+    (``utils.tracing.CollectiveEntry``), groups of one left out as the
+    reference's ``parse_collectives`` leaves them."""
+    bytes_by = {k: 0 for k in COLLECTIVE_KINDS}
+    count_by = {k: 0 for k in COLLECTIVE_KINDS}
+    for e in entries:
+        if e.group <= 1:
+            continue
+        bytes_by[e.kind] += wire_bytes(e.kind, entry_bytes(e), e.group)
+        count_by[e.kind] += 1
+    return CollectiveStats(bytes_by, count_by)
+
+
 def from_counts(flops: float, bytes_accessed: float, model_flops: float,
                 collective_bytes: float = 0.0,
-                profile: MachineProfile = H100_SXM) -> Roofline:
+                profile: MachineProfile = H100_SXM,
+                collectives: Optional[Dict[str, int]] = None) -> Roofline:
     """A :class:`Roofline` from counted operations (at the profile's peak
     rate, :meth:`Work.peak_ops`), bytes and collective bytes, in place of
     the reference's ``from_compiled`` (there is no XLA cost analysis)."""
     return Roofline(flops=float(flops), bytes_accessed=float(bytes_accessed),
                     collective_bytes=float(collective_bytes),
-                    model_flops=float(model_flops), collectives={},
+                    model_flops=float(model_flops), collectives=dict(collectives or {}),
                     profile=profile)
 
 
@@ -288,10 +357,12 @@ def stdp_work(C: int, B: int, p: int, q: int) -> Work:
                 + 4 * C * p * q, scalar_ops=2 * C * B * p * q)
 
 
-def threefry_work(n_floats: int) -> Work:
+def threefry_work(n_floats: int, pad_floats: int = 0) -> Work:
     """One threefry draw: the floats written (the key is two kernel
-    arguments) and ``THREEFRY_INT_OPS`` INT32 operations per float."""
-    return Work(bytes=4 * n_floats, int_ops=THREEFRY_INT_OPS * n_floats)
+    arguments) and ``THREEFRY_INT_OPS`` INT32 operations per float; a mesh
+    window's ``pad_floats`` (its pad sites' 1.0) are written unhashed."""
+    return Work(bytes=4 * (n_floats + pad_floats),
+                int_ops=THREEFRY_INT_OPS * n_floats)
 
 
 def wta_work(numel: int) -> Work:

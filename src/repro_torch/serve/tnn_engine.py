@@ -39,7 +39,17 @@ the shadow starts from clones of the published weights and a swap publishes
 clones of the shadow. Requests record their version;
 :meth:`TNNEngine.stats_by_version` splits the record by it.
 
-Not ported: device meshes.
+**(data, model) mesh** (``mesh=``, a ``launch.mesh.Mesh2D``): slots shard
+over "data" and sites over "model". Every rank runs the same deterministic
+admission over the same request stream, encodes the whole slot batch and
+cuts its window; the forward, the K-wave drain and the online steps run on
+the local rows and site slice, and the last layer's spike times are
+gathered over both axes, so classify runs on the logical (unpadded) z on
+every rank, as the reference's engine does. A hot swap publishes the same
+snapshot on every rank (its re-label forward runs meshed); rank 0 writes
+its checkpoint. Class ids are identical on every rank; :meth:`stats` and
+:meth:`stats_by_version` are collectives there, which carry rank 0's clock
+to every rank.
 """
 from __future__ import annotations
 
@@ -53,17 +63,21 @@ import torch
 
 from repro_torch import random as _random
 from repro_torch.checkpoint.checkpointer import (
-    Checkpointer, restore_tnn, tnn_config_fingerprint,
+    Checkpointer, agreed_latest_step, restore_tnn, save_tnn,
+    tnn_config_fingerprint,
 )
 from repro_torch.core.network import (
     NetworkConfig,
     TrainState,
     classify,
     encode_images,
+    local_param_cols,
+    logical_params,
     make_online_step,
     make_online_superbatch_step,
     network_forward,
     network_forward_superbatch,
+    network_mesh_spec,
     params_from_tree,
     params_to_tree,
     refresh_vote_table,
@@ -159,6 +173,10 @@ class TNNEngine:
             continues the checkpoint's instead).
         ckpt_dir: where hot swaps checkpoint the shadow state and its vote
             table (None = no checkpoint).
+        mesh: a (data, model) ``launch.mesh.Mesh2D``: the engine serves on
+            the rank's device (``device`` is not read) and holds the rank's
+            site slices of the weights; ``n_slots`` must divide by the data
+            axis. ``None`` serves in one process.
     """
 
     def __init__(
@@ -173,6 +191,7 @@ class TNNEngine:
         swap_every: int = 0,
         seed: int = 0,
         ckpt_dir: Optional[str] = None,
+        mesh=None,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots={n_slots} must be >= 1")
@@ -183,15 +202,23 @@ class TNNEngine:
         if swap_every and not online_stdp:
             raise ValueError("swap_every needs online_stdp=True: there is no "
                              "shadow state to swap in otherwise")
+        if mesh is not None and n_slots % mesh.n_data:
+            raise ValueError(f"n_slots={n_slots} not divisible by "
+                             f"data axis size {mesh.n_data}")
         cfg = with_impl(cfg, impl)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.spec = network_mesh_spec(cfg, mesh)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.n_slots = n_slots
         self.superbatch_k = superbatch_k
         # the published snapshot: params, vote table and version move
         # together; a dispatch reads the tuple once, a swap replaces it once
+        ps = [w.to(self.device, torch.int8).contiguous() for w in params]
+        if mesh is not None:
+            ps = self.spec.local_weights(ps)
         self._published: Tuple[List[torch.Tensor], Optional[torch.Tensor], int] = (
-            [w.to(self.device, torch.int8).contiguous() for w in params], None, 0)
+            ps, None, 0)
         self.T = cfg.layers[-1].column.wave.T
         self.queue: Deque[ClassifyRequest] = collections.deque()
         self.done: Dict[int, ClassifyRequest] = {}
@@ -216,8 +243,8 @@ class TNNEngine:
         self.learn_state: Optional[TrainState] = None
         self._online = self._online_sb = None
         if online_stdp:
-            self._online = make_online_step(cfg)
-            self._online_sb = (make_online_superbatch_step(cfg)
+            self._online = make_online_step(cfg, mesh)
+            self._online_sb = (make_online_superbatch_step(cfg, mesh)
                                if superbatch_k > 1 else None)
             self.learn_state = self._shadow(train_stream_start(_random.PRNGKey(seed)))
 
@@ -231,8 +258,16 @@ class TNNEngine:
 
     @property
     def params(self) -> List[torch.Tensor]:
-        """The published serving weights (version ``version``)."""
+        """The published serving weights (version ``version``): on a mesh,
+        the rank's site slices."""
         return self._published[0]
+
+    def logical_params(self, params: Optional[Sequence[torch.Tensor]] = None
+                       ) -> List[torch.Tensor]:
+        """``params`` (default: the published weights) at the logical
+        extent: on a mesh gathered over the model axis (a collective)."""
+        ps = self.params if params is None else list(params)
+        return logical_params(params_to_tree(ps), self.cfg, self.mesh)
 
     @property
     def vote_table(self) -> Optional[torch.Tensor]:
@@ -264,6 +299,7 @@ class TNNEngine:
         online_stdp: bool = False,
         swap_every: int = 0,
         swap_ckpt_dir: Optional[str] = None,
+        mesh=None,
     ) -> "TNNEngine":
         """Serve a TNN training checkpoint (either package's; ``step=None``
         takes the latest): its weights, and its vote table when the trainer
@@ -275,13 +311,20 @@ class TNNEngine:
         With ``online_stdp=True`` the shadow continues the checkpoint's key
         and wave counter, so N online waves equal the trainer resuming for
         N waves on the same stream; swap checkpoints go to ``ckpt_dir``
-        unless ``swap_ckpt_dir`` names another directory."""
-        state, extra = restore_tnn(Checkpointer(ckpt_dir), cfg, step, device)
+        unless ``swap_ckpt_dir`` names another directory. Checkpoints carry
+        no mesh: on a ``mesh`` every rank reads the full tree and cuts its
+        window."""
+        ckpt = Checkpointer(ckpt_dir)
+        if step is None and mesh is not None:
+            step = agreed_latest_step(ckpt, mesh)
+        if mesh is not None:
+            device = mesh.device
+        state, extra = restore_tnn(ckpt, cfg, step, device)
         eng = cls(cfg, params_from_tree(state["params"], cfg), n_slots=n_slots,
                   impl=impl, device=device, superbatch_k=superbatch_k,
                   online_stdp=online_stdp, swap_every=swap_every,
                   ckpt_dir=(swap_ckpt_dir or ckpt_dir) if online_stdp
-                  else swap_ckpt_dir)
+                  else swap_ckpt_dir, mesh=mesh)
         if online_stdp:
             eng.learn_state = eng._shadow(state)
         if label_data is not None:
@@ -302,8 +345,23 @@ class TNNEngine:
         return eng
 
     def _forward(self, ps: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        """(b, S, p) spikes -> (b, S, q) last-layer post-WTA times."""
-        return network_forward(x, list(ps), self.cfg)[-1]
+        """(b, S, p) spikes -> (b, S, q) last-layer post-WTA times (on a mesh:
+        the rank's window through its weights, then gathered)."""
+        return self._gather(network_forward(self._local(x), list(ps), self.cfg)[-1])
+
+    def _local(self, x: torch.Tensor, row_axis: int = 0) -> torch.Tensor:
+        """Global encoded spikes -> the rank's (rows, sites) window."""
+        if self.mesh is None:
+            return x
+        return self.spec.local_spikes(x, self.cfg.layers[0].column.wave.T,
+                                      row_axis=row_axis, site_axis=row_axis + 1)
+
+    def _gather(self, z: torch.Tensor, row_axis: int = 0) -> torch.Tensor:
+        """The rank's z window -> the logical z, gathered over both axes."""
+        if self.mesh is None:
+            return z
+        return self.mesh.gather_grid(z, self.spec, row_axis=row_axis,
+                                     site_axis=row_axis + 1)
 
     def _encode(self, images: np.ndarray) -> torch.Tensor:
         imgs = torch.from_numpy(np.ascontiguousarray(images, np.float32))
@@ -379,7 +437,8 @@ class TNNEngine:
             self._t_first = time.perf_counter()
         x = self._stage_wave(admitted)
         if self._online is not None:
-            self.learn_state, z = self._online(ps, self.learn_state, x)
+            self.learn_state, z = self._online(ps, self.learn_state, self._local(x))
+            z = self._gather(z)
             self._learn_waves += 1
         else:
             z = self._forward(ps, x)
@@ -393,12 +452,13 @@ class TNNEngine:
         ps, vt, ver = self._published
         if self._t_first is None:
             self._t_first = time.perf_counter()
-        x_k = torch.stack([self._stage_wave(w) for w in waves])
+        x_k = self._local(torch.stack([self._stage_wave(w) for w in waves]), 1)
         if self._online_sb is not None:
             self.learn_state, z_k = self._online_sb(ps, self.learn_state, x_k)
             self._learn_waves += len(waves)
         else:
             z_k = network_forward_superbatch(x_k, ps, self.cfg)[-1]
+        z_k = self._gather(z_k, 1)
         return self._readout(waves, z_k.reshape(-1, *z_k.shape[2:]), vt, ver)
 
     def _readout(self, waves: List[List[ClassifyRequest]], z: torch.Tensor,
@@ -478,16 +538,17 @@ class TNNEngine:
                 "hot_swap rebuilds the vote table at the new weights and needs "
                 "a labelled set: call fit(images, labels) or "
                 "set_label_data(images, labels) before swapping")
-        new_ps = [w.clone() for w in
-                  params_from_tree(self.learn_state["params"], self.cfg)]
+        new_ps = [w.clone() for w in params_from_tree(
+            self.learn_state["params"], self.cfg,
+            n_cols=local_param_cols(self.cfg, self.mesh))]
         x, labs = self._label_set
         vt = refresh_vote_table(self._forward, new_ps, x, labs, self.cfg,
                                 self.n_slots)
         wave = int(self.learn_state["wave"])
         if self.ckpt is not None:
-            self.ckpt.save(
-                wave, dict(self.learn_state, vote_table=vt),
-                extra={"arch": "tnn-mnist",
+            save_tnn(
+                self.ckpt, self.cfg, wave, dict(self.learn_state, vote_table=vt),
+                mesh=self.mesh, extra={"arch": "tnn-mnist",
                        "config": tnn_config_fingerprint(self.cfg),
                        "wave": wave, "has_vote": True, "eval_wave": wave,
                        "accuracy": None},
@@ -551,16 +612,22 @@ class TNNEngine:
 
     def _mk_stats(self, lat_ms: List[float], waves: int, wall: float,
                   slots_filled: int) -> ServeStats:
+        """One record; on a mesh (a collective) its clock readings are rank
+        0's, so every rank returns the same stats."""
         served = len(lat_ms)
         lat = np.asarray(lat_ms, np.float64)
+        p50 = float(np.percentile(lat, 50)) if served else 0.0
+        p95 = float(np.percentile(lat, 95)) if served else 0.0
+        if self.mesh is not None:
+            wall, p50, p95 = self.mesh.broadcast_floats([wall, p50, p95])
         return ServeStats(
             requests=served,
             waves=waves,
             wall_s=wall,
             waves_per_s=waves / wall if wall > 0 else 0.0,
             images_per_s=served / wall if wall > 0 else 0.0,
-            p50_ms=float(np.percentile(lat, 50)) if served else 0.0,
-            p95_ms=float(np.percentile(lat, 95)) if served else 0.0,
+            p50_ms=p50,
+            p95_ms=p95,
             occupancy=(slots_filled / (waves * self.n_slots)) if waves else 0.0,
         )
 

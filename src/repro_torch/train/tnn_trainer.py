@@ -1,5 +1,5 @@
 """Streaming online-STDP trainer for the TNN prototype, as the reference's
-``repro.train.tnn_trainer`` (without a device mesh).
+``repro.train.tnn_trainer``.
 
 * **Wave batching.** Each step is one gamma wave over a fixed-shape batch of
   encoded images through ``core.network.make_train_step`` (forward and
@@ -22,7 +22,16 @@
   end, a labelled pass over the train set rebuilds the vote table
   (``refresh_vote_table``) and the soft site vote scores held-out accuracy.
 
-Entry point: ``python -m repro_torch.launch.train --arch tnn-mnist [--smoke]``.
+* **(data, model) mesh.** ``mesh=`` (``launch.mesh.Mesh2D``) trains one
+  rank's part: every rank builds the same global wave from the seeded stream
+  and cuts its window (``MeshSpec.local_spikes``); the state holds the
+  rank's site-padded weight slices; the step all-reduces the STDP counters
+  over the data axis. Evaluation runs unsharded on the gathered weights,
+  as the reference's; rank 0 writes the checkpoints and the metrics and
+  prints. Any factorization trains to the unmeshed bits.
+
+Entry point: ``python -m repro_torch.launch.train --arch tnn-mnist [--smoke]
+[--mesh DxM]``.
 """
 from __future__ import annotations
 
@@ -37,7 +46,9 @@ import torch
 from repro_torch import random as _random
 from repro_torch.checkpoint.checkpointer import (
     Checkpointer,
+    agreed_latest_step,
     restore_tnn,
+    save_tnn,
     tnn_config_fingerprint,
 )
 from repro_torch.configs.tnn_mnist import DEFAULT_CKPT_DIR, crop_field
@@ -50,7 +61,9 @@ from repro_torch.core.network import (
     make_superbatch_step,
     make_train_step,
     network_forward,
-    params_from_tree,
+    local_tree,
+    logical_params,
+    network_mesh_spec,
     refresh_vote_table,
 )
 from repro_torch.data.mnist_like import digits
@@ -120,19 +133,28 @@ class WaveStream:
 
 class TNNTrainer:
     """Checkpointed, resumable, wave-batched STDP training loop on
-    ``device`` (the card unless the caller names the CPU)."""
+    ``device`` (the card unless the caller names the CPU), or on the rank's
+    device of ``mesh``."""
 
-    def __init__(self, cfg: NetworkConfig, tcfg: TNNTrainConfig, device="cuda"):
+    def __init__(self, cfg: NetworkConfig, tcfg: TNNTrainConfig, device="cuda",
+                 mesh=None):
         cfg.validate()
         if tcfg.superbatch_k < 1:
             raise ValueError(f"superbatch_k={tcfg.superbatch_k} must be >= 1")
-        self.device = resolve_device(device)
+        if mesh is not None and tcfg.wave_batch % mesh.n_data:
+            raise ValueError(
+                f"wave_batch={tcfg.wave_batch} not divisible by data "
+                f"axis size {mesh.n_data}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.tcfg = tcfg
-        self.step_fn = make_train_step(cfg)
-        self.superbatch_fn = (make_superbatch_step(cfg)
+        self.mesh = mesh
+        self.spec = network_mesh_spec(cfg, mesh)
+        self.step_fn = make_train_step(cfg, mesh)
+        self.superbatch_fn = (make_superbatch_step(cfg, mesh)
                               if tcfg.superbatch_k > 1 else None)
-        self.state = init_train_state(_random.PRNGKey(tcfg.seed), cfg, self.device)
+        state = init_train_state(_random.PRNGKey(tcfg.seed), cfg, self.device)
+        self.state = dict(state, params=local_tree(state["params"], cfg, mesh))
         self.stream = WaveStream(cfg, tcfg.train_size, tcfg.wave_batch,
                                  seed=tcfg.data_seed, device=self.device)
         self.eval_stream = WaveStream(cfg, tcfg.eval_size, tcfg.wave_batch,
@@ -148,7 +170,23 @@ class TNNTrainer:
         self.accuracy: Optional[float] = None
         self.wave_times: list = []
         self._metrics_f = (open(tcfg.metrics_path, "a")
-                           if tcfg.metrics_path else None)
+                           if tcfg.metrics_path and self._is_main else None)
+
+    @property
+    def _is_main(self) -> bool:
+        return self.mesh is None or self.mesh.is_main
+
+    def _x(self, x: torch.Tensor, row_axis: int = 0) -> torch.Tensor:
+        """A global wave (or superbatch) -> the rank's window."""
+        if self.mesh is None:
+            return x
+        T = self.cfg.layers[0].column.wave.T
+        return self.spec.local_spikes(x, T, row_axis=row_axis, site_axis=row_axis + 1)
+
+    def params(self):
+        """The logical weights: gathered over the model axis on a mesh (a
+        collective: every rank calls it)."""
+        return logical_params(self.state["params"], self.cfg, self.mesh)
 
     def _forward(self, ps, x: torch.Tensor) -> torch.Tensor:
         return network_forward(x, list(ps), self.cfg)[-1]
@@ -181,8 +219,9 @@ class TNNTrainer:
         return int(self.state["wave"])
 
     def checkpoint(self, block: bool = False) -> None:
-        self.ckpt.save(
-            self.wave, dict(self.state, vote_table=self.vote_table),
+        save_tnn(
+            self.ckpt, self.cfg, self.wave,
+            dict(self.state, vote_table=self.vote_table), mesh=self.mesh,
             extra={"arch": "tnn-mnist",
                    "config": tnn_config_fingerprint(self.cfg),
                    "wave": self.wave, "has_vote": self.has_vote,
@@ -191,10 +230,11 @@ class TNNTrainer:
             block=block)
 
     def maybe_resume(self) -> bool:
-        latest = self.ckpt.latest_step()
+        latest = agreed_latest_step(self.ckpt, self.mesh)
         if latest is None:
             return False
-        state, extra = restore_tnn(self.ckpt, self.cfg, latest, self.device)
+        state, extra = restore_tnn(self.ckpt, self.cfg, latest, self.device,
+                                   mesh=self.mesh)
         self.vote_table = state.pop("vote_table")
         self.state = state
         self.has_vote = bool(extra.get("has_vote", False))
@@ -206,9 +246,10 @@ class TNNTrainer:
 
     def evaluate(self) -> float:
         """Labelled pass over the train set -> vote table; held-out accuracy
-        by the soft site vote."""
+        by the soft site vote. On a mesh every rank runs it unsharded on the
+        gathered weights."""
         T = self.cfg.layers[-1].column.wave.T
-        params = params_from_tree(self.state["params"], self.cfg)
+        params = self.params()
         self.vote_table = refresh_vote_table(
             self._forward, params, self.stream.x, self.train_labels,
             self.cfg, self.tcfg.wave_batch)
@@ -226,8 +267,9 @@ class TNNTrainer:
         if self._metrics_f:
             self._metrics_f.write(json.dumps(rec) + "\n")
             self._metrics_f.flush()
-        if (self.tcfg.log_every and rec["wave"] % self.tcfg.log_every == 0) \
-                or "accuracy" in rec:
+        if self._is_main and ((self.tcfg.log_every
+                               and rec["wave"] % self.tcfg.log_every == 0)
+                              or "accuracy" in rec):
             print("[tnn-trainer] " +
                   " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                            for k, v in rec.items()))
@@ -253,9 +295,19 @@ class TNNTrainer:
             nxt = min(nxt, (wave // wpe + 1) * wpe)
         return min(tc.superbatch_k, nxt - wave)
 
+    def _fired(self, z: torch.Tensor, T: int) -> float:
+        """Share of the last layer's (batch, site, neuron) times that fired;
+        on a mesh summed over every rank's window (pad sites never fire)."""
+        if self.mesh is None:
+            return float((z < T).to(torch.float32).mean())
+        n = (z < T).sum().to(torch.int64).reshape(1)
+        n = self.mesh.all_reduce_sum(n, "world")
+        q = self.cfg.layers[-1].column.q
+        return float(n[0]) / (self.tcfg.wave_batch * self.spec.n_cols * q)
+
     def _run(self) -> Dict[str, Any]:
         resumed = self.maybe_resume()
-        if resumed:
+        if resumed and self._is_main:
             print(f"[tnn-trainer] resumed at wave {self.wave} "
                   f"from {self.tcfg.ckpt_dir}")
         total = self.tcfg.total_waves
@@ -266,13 +318,14 @@ class TNNTrainer:
             t0 = time.perf_counter()
             if self.superbatch_fn is None:
                 k = 1
-                self.state, z = self.step_fn(self.state, self.stream.batch_at(wave))
+                self.state, z = self.step_fn(self.state,
+                                             self._x(self.stream.batch_at(wave)))
             else:
                 k = self._chunk_k(wave, total)
                 self.state, z_k = self.superbatch_fn(
-                    self.state, self.stream.superbatch_at(wave, k))
+                    self.state, self._x(self.stream.superbatch_at(wave, k), 1))
                 z = z_k[-1]  # the chunk-end wave's readout, as lock-step
-            fired = float((z < T).to(torch.float32).mean())  # waits for the wave
+            fired = self._fired(z, T)  # waits for the wave
             dt = time.perf_counter() - t0
             self.wave_times.append(dt / k)
             wave += k
@@ -297,7 +350,10 @@ class TNNTrainer:
             self.evaluate()
             did_final_eval = True
         self.ckpt.wait()
-        if did_final_eval or self.ckpt.latest_step() != self.wave:
+        save = did_final_eval or self.ckpt.latest_step() != self.wave
+        if self.mesh is not None:   # one decision: the save is a collective
+            save = bool(self.mesh.broadcast_floats([save])[0])
+        if save:
             self.checkpoint(block=True)
             self.ckpt.wait()
         med = float(np.median(self.wave_times)) if self.wave_times else 0.0

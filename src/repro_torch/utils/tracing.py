@@ -10,10 +10,18 @@ N-layer cascade launches N column, N STDP and N threefry kernels; under
 ``impl="fused"`` one wave kernel and N threefry draws; a "seq" or "gauss"
 network launches N column kernels and N threefry draws, and no wave or
 STDP kernel.
+
+:func:`collectives_recorded` records the collectives ``launch.mesh`` issues
+(kind, dtype, result shape, group size), which ``roofline.analysis``
+prices with the reference's ring model.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+import dataclasses
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import torch
 
 from repro_torch.kernels import stdp_update, threefry, tnn_column, tnn_wave, wta
 
@@ -42,3 +50,47 @@ def kernel_launch_count(fn: Callable, *args, **kwargs) -> Tuple[Dict[str, int], 
     reset_counts()
     out = fn(*args, **kwargs)
     return read_counts(), out
+
+
+# ---------------------------------------------------------------------------
+# The collectives the mesh issues
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEntry:
+    """One collective as ``launch.mesh`` issued it: its kind (the
+    reference's HLO names: "all-reduce", "all-gather"; and "broadcast"), the
+    element type, the RESULT shape (an all-gather's gathered extent, as HLO
+    writes it) and the group size."""
+
+    kind: str
+    dtype: torch.dtype
+    shape: Tuple[int, ...]
+    group: int
+
+
+_RECORDER: Optional[List[CollectiveEntry]] = None
+
+
+def record_collective(kind: str, dtype: torch.dtype, shape: Tuple[int, ...],
+                      group: int) -> None:
+    """Note one collective while a :func:`collectives_recorded` block is
+    open (nothing otherwise)."""
+    if _RECORDER is not None:
+        _RECORDER.append(CollectiveEntry(kind, dtype, tuple(int(s) for s in shape),
+                                         int(group)))
+
+
+@contextlib.contextmanager
+def collectives_recorded() -> Iterator[List[CollectiveEntry]]:
+    """Record every collective issued inside the block into the yielded
+    list: the port's counterpart of reading them off compiled HLO."""
+    global _RECORDER
+    outer, _RECORDER = _RECORDER, []
+    try:
+        yield _RECORDER
+    finally:
+        entries, _RECORDER = _RECORDER, outer
+        if outer is not None:
+            outer.extend(entries)

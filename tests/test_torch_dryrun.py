@@ -4,7 +4,7 @@ counts and profile numbers; ``run_tnn_cell`` on the CPU, cut to 4 sites and
 a few images, returns the reference's result fields and its wave equals the
 reference's ``network_train_wave`` / ``network_forward`` on the same
 inputs; the launcher writes the reference's file names; and the variants
-that need more than one card, or an LM architecture, are refused."""
+of the reference's production meshes, or an LM architecture, are refused."""
 import json
 
 import jax
@@ -104,15 +104,19 @@ def test_dryrun_writes_the_reference_file_names(tmp_path):
 
 
 def test_dryrun_refusals(capsys):
-    for kw in ({"multi_pod": True}, {"column_parallel": True}):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5"):
-            t_dryrun.run_tnn_cell("tnn_train_8k", device="cpu", **kw)
+    """The production meshes need 256 and 512 cards; the column-parallel
+    variant runs on a process mesh (``run_tnn_colpar_cell``, under
+    torchrun); the LM architectures wait for Queue 1 item 6."""
+    with pytest.raises(ValueError, match="256 cards.*512"):
+        t_dryrun.run_tnn_cell("tnn_train_8k", device="cpu", multi_pod=True)
+    with pytest.raises(ValueError, match="process mesh"):
+        t_dryrun.run_tnn_cell("tnn_train_8k", device="cpu", column_parallel=True)
     with pytest.raises(ValueError, match="learning wave"):
         t_dryrun.run_tnn_cell("tnn_infer_64k", gauss=True, device="cpu")
     for argv, words in ((["--arch", "llama3-8b"], "item 6"),
-                        (["--mesh", "multi"], "item 5"),
-                        (["--mesh", "both"], "item 5"),
-                        (["--colpar"], "item 5")):
+                        (["--mesh", "multi"], "256 cards"),
+                        (["--mesh", "both"], "512"),
+                        (["--colpar"], "torchrun")):
         with pytest.raises(SystemExit) as e:
             t_dryrun.main(argv + ["--device", "cpu"])
         assert e.value.code == 2

@@ -20,6 +20,7 @@ from repro_torch.core.network import init_network
 from repro_torch.kernels import threefry
 from repro_torch.launch import dryrun as launch_dryrun
 from repro_torch.launch import loadgen as launch_loadgen
+from repro_torch.launch.mesh import make_mesh_2d
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import tnn_mnist as launch_flagship
 from repro_torch.launch import train as launch_train
@@ -39,7 +40,8 @@ def test_port_imports_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.tnn_wave" in mods and len(mods) >= 20
     for new in ("launch.loadgen", "launch.tnn_mnist", "core.hwmodel", "core.macros",
-                "launch.dryrun", "roofline.analysis", "utils.tracing"):
+                "launch.dryrun", "roofline.analysis", "utils.tracing",
+                "launch.mesh", "launch.collective_probe"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -47,6 +49,7 @@ def test_port_imports_no_jax():
         for name in {mods!r}:
             importlib.import_module(name)
         import chip_smoke
+        import mesh_cards
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro") or m.startswith(
                          ("jax.", "jaxlib.", "repro.")))
@@ -97,6 +100,12 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
         threefry.nested_uniforms(key, 4, 2, (2, 3, 2))
     with pytest.raises(RuntimeError, match="cuda"):
         launch_dryrun.run_tnn_cell("tnn_train_8k", sites=4, batch=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        threefry.window_uniforms(key, 4, 2, (3, 2), (0, 2, 0, 1))
+    with pytest.raises(ValueError, match="backend='gloo'"):   # the mesh default: NCCL
+        make_mesh_2d(1, 1)
+    assert launch_serve.parse_args([]).mesh is None
+    assert launch_train.parse_args([]).mesh is None
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
