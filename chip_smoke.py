@@ -88,7 +88,22 @@ Phases, each of which fails the run on error:
             wave (pallas, fused); one rank over NCCL (1x1) repeats the train
             and online runs. Times from ranks sharing one card are labelled
             so.
-15. report  one JSON line with the serve, train, slice-6/7/8 and shape
+15. lm      LM serving (slice 9; no hand-written kernel: the LM path reaches
+            no Pallas kernel in the reference): llama3.2-3b at full width and
+            depth drawn from PRNGKey(0) on the card, the first and last 2**20
+            floats of its embedding and of a stacked weight bit-equal to the
+            CPU's draw of the same counter windows; the serve launcher (8
+            requests, 4 slots, 32 new tokens, 256 positions) timed, then the
+            same requests served again recording logits and trunk increments,
+            every request held, teacher-forced, to a one-slot run of its tokens
+            (argmax equal outside near ties, increments within tolerance); a
+            traced decode tick (idle share, top ops) against the decode
+            step's byte bound; llama at 2 layers on the card and the CPU
+            (bf16 and f32, logits and increments); minicpm3-4b at full size
+            and mixtral-8x22b cut to 2 layers served with the same checks;
+            the seven smoke configs card against the CPU. No TNN kernel may
+            launch.
+16. report  one JSON line with the serve, train, slice-6/7/8/9 and shape
             numbers, one with every kernel's numbers, the card's nvidia-smi
             line, then the result line.
 
@@ -141,6 +156,14 @@ from repro_torch.launch.mesh import make_mesh_2d, spawn_ranks  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import tnn_mnist as t_flagship  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.configs import get_config as get_lm_config  # noqa: E402
+from repro_torch.configs import smoke_config as lm_smoke_config  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    draw_normal as lm_draw_normal, is_spec as lm_is_spec, tree_flatten as lm_tree_flatten,
+    tree_map as lm_tree_map,
+)
+from repro_torch.serve.engine import Engine as LMEngine  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 from repro_torch.roofline import analysis as RL  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
@@ -2044,6 +2067,301 @@ def mesh_phase(dev, final_a, online_ref, params0, card: str):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# LM serving (port slice 9): the slot engine on the attention decoders
+# ---------------------------------------------------------------------------
+
+LM_WINDOW = 1 << 20          # floats of each draw window checked against the CPU
+LM_MAX_NEW, LM_MAX_LEN = 32, 256
+LM_SERVE = ["--requests", "8", "--slots", "4", "--max-new", str(LM_MAX_NEW),
+            "--max-len", str(LM_MAX_LEN)]
+LM_SMOKE_ARCHS = ("llama3.2-3b", "mistral-nemo-12b", "qwen1.5-4b", "minicpm3-4b",
+                  "mixtral-8x22b", "grok-1-314b", "internvl2-76b")
+# stated tolerances. Card against card (batched engine vs a one-slot run of
+# the same tokens, bf16): argmax equal wherever the top-two margin exceeds
+# the largest |dlogit|; trunk increments within 0.1 RMS of their RMS (the
+# CPU tests' bf16 bound). Card against the CPU: float32 logits within 1e-4
+# and increments within 1e-4 of their largest value; bfloat16 logits no
+# further apart than bf16 is from float32 on either side (the larger of the
+# card's and the CPU's max |bf16 - f32| logit difference on the same
+# tokens: each side rounds every product and the residual stream to bf16
+# in its own order), increments within 0.1 RMS.
+LM_INC_RMS = 0.1
+LM_F32 = dict(logits=1e-4, inc_max=1e-4)
+
+
+def _rms_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.sqrt(((a - b) ** 2).mean() / (b ** 2).mean().clamp_min(1e-30)))
+
+
+def lm_draw_windows(cfg, params) -> dict:
+    """(a) The first and last LM_WINDOW floats of the embedding and of one
+    stacked weight, drawn on the card, against the CPU's draw of the same
+    counter windows, bit for bit."""
+    keys = lm_model.param_keys(cfg, t_random.PRNGKey(0))
+    specs = dict(lm_tree_flatten(lm_model.build_specs(cfg), lm_is_spec))
+    out = {}
+    for path in (("embed", "embedding"), ("trunk", f"0_{cfg.layout_unit[0]}", "attn", "wo")):
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        flat = leaf.reshape(-1)
+        std = torch.tensor(specs[path].std, dtype=torch.float32)
+        for lo in (0, flat.numel() - LM_WINDOW):
+            cpu = lm_draw_normal(keys[path], LM_WINDOW, "cpu", offset=lo).mul_(std)
+            card = flat[lo:lo + LM_WINDOW].cpu()
+            bad = int((card.view(torch.int32) != cpu.view(torch.int32)).sum())
+            name = f"{'/'.join(path)}[{lo}:{lo + LM_WINDOW}]"
+            print(f"  draw window {name}: {bad} of {LM_WINDOW} floats differ from the CPU's",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"{name}: the card's draw differs from the CPU's")
+            out[name] = bad
+    return out
+
+
+def lm_one_slot(cfg, params, req, dev):
+    """Teacher-forced one-slot run of a served request's tokens: its prompt
+    prefilled, then each output token but the last decoded at its position.
+    Returns the (logits, increment) rows of each output token, float32."""
+    cache = lm_model.init_cache(cfg, 1, LM_MAX_LEN, torch.bfloat16, dev)
+    prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64, device=dev)[None]
+    logits, cache, inc = lm_model.prefill(params, cfg, prompt, cache, increment=True)
+    rows = [(logits[0].float().cpu(), inc[0, -1].cpu())]
+    for i, tok in enumerate(req.out_tokens[:-1]):
+        t = torch.tensor([tok], device=dev)
+        logits, cache, inc = lm_model.decode_step(params, cfg, t, len(req.prompt) + i, cache,
+                                                  increment=True)
+        rows.append((logits[0].float().cpu(), inc[0].cpu()))
+    return rows
+
+
+def lm_hold(cfg, params, done, dev, what: str) -> dict:
+    """Check (b): every recorded request held to a one-slot run of the same
+    tokens on ``dev`` (its params): the largest |dlogit|; the argmax equal
+    wherever the one-slot top-two margin exceeds it (else a near tie,
+    counted); the trunk increments' largest RMS difference, relative."""
+    rows = {u: lm_one_slot(cfg, params, r, dev) for u, r in done.items()}
+    d_logit = max(float((a - lg).abs().max())
+                  for u, r in done.items() for a, (lg, _) in zip(r.logits, rows[u]))
+    ties = disagree = flips = steps = 0
+    inc_rel = 0.0
+    for u, r in done.items():
+        for a, ia, (lg, inc) in zip(r.logits, r.increments, rows[u]):
+            steps += 1
+            top2 = torch.topk(lg, 2).values
+            margin = float(top2[0] - top2[1])
+            flipped = int(torch.argmax(a)) != int(torch.argmax(lg))
+            flips += flipped
+            if margin <= d_logit:
+                ties += 1
+            elif flipped:
+                disagree += 1
+            inc_rel = max(inc_rel, _rms_rel(ia, inc))
+    print(f"  {what}: {len(done)} requests, {steps} steps held to one-slot runs: "
+          f"max |dlogit| {d_logit:.4g}, {ties} near ties (margin <= it), {flips} argmax "
+          f"differences in all, {disagree} outside the near ties; trunk increment max RMS "
+          f"diff {inc_rel:.4g} of its RMS (tolerance {LM_INC_RMS})", flush=True)
+    if disagree:
+        raise AssertionError(f"{what}: {disagree} argmax disagreements outside near ties")
+    if inc_rel > LM_INC_RMS:
+        raise AssertionError(f"{what}: trunk increments differ by {inc_rel:.4g} RMS")
+    return {"steps": steps, "max_abs_dlogit": d_logit, "near_ties": ties,
+            "argmax_differences": flips, "inc_rms_rel": inc_rel}
+
+
+def lm_recorded(cfg, params, n: int, slots: int, dev):
+    """The launcher's requests served again with the engine recording its
+    logits and increments (same shapes, so the same tokens)."""
+    eng = LMEngine(cfg, params, n_slots=slots, max_len=LM_MAX_LEN, device=dev, record=True)
+    for req in launch_serve.lm_requests(cfg, n, LM_MAX_NEW):
+        eng.submit(req)
+    return eng.run_until_done(), eng
+
+
+def lm_trace_decode(eng, cfg, lengths) -> dict:
+    """One traced pass of decode ticks (a batched decode_step and its argmax
+    to the host) on the engine's cache, and their CUDA-event time."""
+    n = eng.n_slots
+    tok = torch.as_tensor(eng.last_token, device=eng.device)
+    pos = torch.as_tensor([L - 1 for L in lengths][:n], device=eng.device)
+
+    def tick():
+        logits, _ = lm_model.decode_step(eng.params, cfg, tok, pos, eng.cache)
+        torch.argmax(logits, dim=-1).cpu()
+
+    ev_ms = time_cuda(tick, 10)
+    tr = trace_cell_wave("decode tick", tick, repeats=3)
+    return {"events_ms": ev_ms, **tr}
+
+
+def lm_serve_case(name: str, argv, dev, smi: str, cfg=None) -> dict:
+    """Serve through the launcher (weights drawn on the card), then hold
+    every request to a one-slot run (check (b)), trace a decode pass and
+    price it. Returns the numbers and the report (its weights)."""
+    args = launch_serve.parse_args(argv)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = launch_serve.serve_lm(args, cfg=cfg)
+    launcher_s = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{name}: the LM path launched TNN kernels {counts}")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    cfg = rep.cfg
+    tokens = {u: list(r.out_tokens) for u, r in rep.done.items()}
+    n_ticks, slots = len(rep.engine.decode_ms), rep.engine.n_slots
+    rep.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    done, eng = lm_recorded(cfg, rep.params, args.requests, slots, dev)
+    if {u: r.out_tokens for u, r in done.items()} != tokens:
+        raise AssertionError(f"{name}: the recorded run's tokens differ from the launcher's")
+    held = lm_hold(cfg, eng.params, done, dev, name)
+    mean_len = int(np.mean([len(r.prompt) for r in done.values()])) + LM_MAX_NEW // 2
+    lengths = [mean_len] * slots
+    bound_ms, bound_by, _ = RL.lm_decode_bound(cfg, lengths)
+    nbytes, ops = RL.lm_decode_work(cfg, lengths)
+    trace = lm_trace_decode(eng, cfg, lengths)
+    print(f"  {name} ({smi}): {rep.tokens} tokens in {rep.wall_s:.3f} s = "
+          f"{rep.tokens_per_s:.1f} tokens/s; decode tick median {rep.decode_ms:.3f} ms "
+          f"({n_ticks} ticks of {slots} slots), {trace['events_ms']:.3f} ms by CUDA events; "
+          f"prefill median {rep.prefill_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e9:.3f} GB at {slots} rows of {mean_len} positions); peak "
+          f"{peak / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB held before; "
+          f"launcher {launcher_s:.2f} s with the draw", flush=True)
+    del eng
+    return {"params": cfg.n_params(), "requests": len(done), "tokens": rep.tokens,
+            "wall_s": rep.wall_s, "tokens_per_s": rep.tokens_per_s,
+            "decode_ms": rep.decode_ms, "decode_events_ms": trace["events_ms"],
+            "prefill_ms": rep.prefill_ms, "ticks": n_ticks, "slots": slots,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "bound_lengths": lengths, "peak_gib": peak / 2**30,
+            "launcher_s": launcher_s, "trace": {k: v for k, v in trace.items()
+                                                if k != "events_ms"},
+            "held": held}, rep
+
+
+def _lm_run(cfg, params, prompt, feed, dev, steps: int = 8):
+    """Prefill of ``prompt`` (2 rows), then ``steps`` decode steps of the
+    ``feed`` tokens (None: its own greedy tokens) on ``dev``, cache and
+    compute in ``cfg.dtype``. Returns the
+    (logits, increment) rows of each step, float32 on the host, and the
+    tokens fed."""
+    p = lm_model.compute_params(params, cfg.dtype)
+    # the cache in the compute dtype: a bf16 cache would round the two
+    # sides' float32 K/V apart wherever they straddle a bf16 rounding point
+    cache = lm_model.init_cache(cfg, prompt.shape[0], 32, cfg.dtype, dev)
+    logits, cache, inc = lm_model.prefill(p, cfg, prompt.to(dev), cache, increment=True)
+    rows, fed = [(logits.float().cpu(), inc[:, -1].cpu())], []
+    for i in range(steps):
+        fed.append(torch.argmax(logits, -1).cpu() if feed is None else feed[i])
+        logits, cache, inc = lm_model.decode_step(p, cfg, fed[-1].to(dev), prompt.shape[1] + i,
+                                                  cache, increment=True)
+        rows.append((logits.float().cpu(), inc.cpu()))
+    return rows, fed
+
+
+def lm_card_vs_cpu(cfg, params_card, dev, tag: str) -> dict:
+    """Check (c)/(f): prefill of 2 rows of 12 tokens plus 8 decode steps
+    teacher-forced on the card's bf16 greedy tokens, on the card and on the
+    CPU from the same weights, in bfloat16 and in float32: logits and trunk
+    increments at the stated tolerances (also each side's bf16 logits
+    against its own f32 ones, printed: the rounding the bf16 tolerance
+    must hold)."""
+    params_cpu = lm_tree_map(lambda t: t.cpu(), params_card)
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 12)))
+    bf, f32 = dataclasses.replace(cfg, dtype="bfloat16"), dataclasses.replace(cfg, dtype="float32")
+    _, feed = _lm_run(bf, params_card, prompt, None, dev)   # the card's greedy tokens
+    runs = {(w, c.dtype): _lm_run(c, p, prompt, feed, d)[0]
+            for w, p, d in (("card", params_card, dev), ("cpu", params_cpu, torch.device("cpu")))
+            for c in (bf, f32)}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dl, inc_err = 0.0, 0.0
+        for (la, ia), (lb, ib) in zip(runs["card", dtype], runs["cpu", dtype]):
+            dl = max(dl, float((la - lb).abs().max()))
+            if dtype == "float32":
+                inc_err = max(inc_err, float((ia - ib).abs().max() / ib.abs().max()))
+            else:
+                inc_err = max(inc_err, _rms_rel(ia, ib))
+        out[dtype] = {"max_abs_dlogit": dl, "increment": inc_err}
+        if dtype == "float32":
+            ok = dl <= LM_F32["logits"] and inc_err <= LM_F32["inc_max"]
+            print(f"  {tag} float32, card vs CPU (prefill + 8 decode steps): max |dlogit| "
+                  f"{dl:.4g} (tolerance {LM_F32['logits']}), increment max |diff| / max "
+                  f"|inc| {inc_err:.4g} (tolerance {LM_F32['inc_max']})", flush=True)
+        else:
+            own = {w: max(float((a[0] - b[0]).abs().max()) for a, b in
+                          zip(runs[w, "bfloat16"], runs[w, "float32"])) for w in ("card", "cpu")}
+            out[dtype].update(bf16_vs_f32=own)
+            tol = max(own.values())
+            ok = dl <= tol and inc_err <= LM_INC_RMS
+            print(f"  {tag} bfloat16, card vs CPU: max |dlogit| {dl:.4g} (tolerance {tol:.4g}: "
+                  f"the larger of each side's max |bf16 - f32| logit difference, card "
+                  f"{own['card']:.4g}, CPU {own['cpu']:.4g}), increment RMS diff / RMS "
+                  f"{inc_err:.4g} (tolerance {LM_INC_RMS})", flush=True)
+        if not ok:
+            raise AssertionError(f"{tag} {dtype}: card and CPU differ beyond the tolerance")
+    return out
+
+
+def lm_phase(dev, smi: str) -> dict:
+    """(a)-(f) of the LM serve path; each model freed before the next."""
+    torch.empty(1, device=dev)   # the allocator's stats need it started
+    out = {}
+    t0 = time.perf_counter()
+    case, rep = lm_serve_case("llama3.2-3b", ["--arch", "llama3.2-3b", *LM_SERVE], dev, smi)
+    out["llama3.2-3b"] = case
+    out["llama3.2-3b"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(get_lm_config("llama3.2-3b"), n_layers=2, layout_repeat=2)
+    p2 = lm_model.init_params(cut, t_random.PRNGKey(0), dev)
+    out["llama3.2-3b_2layers_card_vs_cpu"] = lm_card_vs_cpu(cut, p2, dev, "llama3.2-3b 2 layers")
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_llama"] = time.perf_counter() - t0
+    four = ["--requests", "4", "--slots", "4", "--max-new", str(LM_MAX_NEW),
+            "--max-len", str(LM_MAX_LEN)]
+    case, rep = lm_serve_case("minicpm3-4b", ["--arch", "minicpm3-4b", *four], dev, smi)
+    out["minicpm3-4b"] = case
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    # mixtral cut to 2 layers, and its capacity factor raised to E / k so no
+    # token is dropped: the reference's decode routes all slots as one group
+    # (capacity 2 at 4 slots), so at 1.25 a request's tokens depend on the
+    # other slots' (idle ones too) and need not equal its one-slot run, in
+    # either package (ROADMAP Queue 3)
+    mix = get_lm_config("mixtral-8x22b")
+    cut = dataclasses.replace(mix, n_layers=2, layout_repeat=2,
+                              moe_capacity_factor=mix.n_experts / mix.experts_per_token)
+    case, rep = lm_serve_case("mixtral-8x22b (2 layers)", ["--arch", "mixtral-8x22b", *four],
+                              dev, smi, cfg=cut)
+    out["mixtral-8x22b_2layers"] = case
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = {}
+    for arch in LM_SMOKE_ARCHS:
+        cfg = lm_smoke_config(arch)
+        card = lm_model.init_params(cfg, t_random.PRNGKey(0), dev)
+        cpu = lm_model.init_params(cfg, t_random.PRNGKey(0), "cpu")
+        bad = sum(int((a.cpu().view(torch.int32) != b.view(torch.int32)).sum())
+                  for (_, a), (_, b) in zip(lm_tree_flatten(card), lm_tree_flatten(cpu)))
+        if bad:
+            raise AssertionError(f"smoke {arch}: {bad} parameters differ card vs CPU")
+        smoke[arch] = lm_card_vs_cpu(cfg, card, dev, f"smoke {arch}")
+    out["smoke"] = smoke
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("device")
@@ -2198,7 +2516,13 @@ def main() -> int:
     mesh = mesh_phase(dev, trainer_a, online_ref, params0, smi_line)
     seconds["mesh"] = time.perf_counter() - t0
     errs["threefry[window]"] = mesh["window_err"]
-    print(f"  slice-6, slice-7 and slice-8 phase seconds: {seconds}", flush=True)
+
+    t0 = time.perf_counter()
+    phase("lm: LM serving on the card (llama3.2-3b full size, minicpm3-4b, mixtral-8x22b "
+          "cut to 2 layers, the smoke configs against the CPU)")
+    lm = lm_phase(dev, smi_line)
+    seconds["lm"] = time.perf_counter() - t0
+    print(f"  slice-6 to slice-9 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -2271,6 +2595,7 @@ def main() -> int:
         "modes": modes,
         "cells": cells,
         "mesh": {k: v for k, v in mesh.items() if k not in ("window_timing",)},
+        "lm": lm,
         "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,

@@ -1,8 +1,10 @@
 """Weights and training states across the two packages: the reference's
 per-layer weights (numpy arrays, a list of them, or its ``{"layer_NN": ...}``
 tree) to the port's int8 tensors, and back; its training state (params
-tree, key data, wave counter) to the port's state, and back; and a state
-into a mesh rank's local, site-padded shard, and back through the gather."""
+tree, key data, wave counter) to the port's state, and back; a state
+into a mesh rank's local, site-padded shard, and back through the gather;
+and an LM's param tree (``lm_params_from_numpy`` / ``lm_params_to_numpy``),
+name for name."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Union
@@ -15,6 +17,8 @@ from repro_torch.core.network import (
     NetworkConfig, local_tree, logical_params, params_to_tree,
 )
 from repro_torch.device import resolve_device
+from repro_torch.models.model import build_specs
+from repro_torch.models.params import is_spec, tree_flatten, tree_map, tree_map_with_path
 
 ArraysOrTree = Union[Sequence[np.ndarray], Dict[str, np.ndarray]]
 
@@ -114,3 +118,33 @@ def state_from_local(state: Dict, cfg: NetworkConfig, mesh) -> Dict:
     local state, its weights gathered to the logical extent."""
     return state_to_numpy(dict(state, params=params_to_tree(
         logical_params(state["params"], cfg, mesh))))
+
+
+def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
+    """An LM param tree as numpy (the reference's ``init_params`` after
+    ``jax.tree.map(np.asarray, ...)``) -> the port's tree of float32 tensors
+    on ``device``. The tree must hold exactly the leaves of
+    ``build_specs(cfg)``, at their shapes."""
+    dev = resolve_device(device)
+    specs = build_specs(cfg)
+    want = {path: s.shape for path, s in tree_flatten(specs, is_spec)}
+    got = {path: np.shape(a) for path, a in tree_flatten(tree)}
+    if set(got) != set(want):
+        raise KeyError(f"leaves differ from {cfg.name}'s: missing "
+                       f"{sorted(set(want) - set(got))}, extra {sorted(set(got) - set(want))}")
+    for path, shape in want.items():
+        if tuple(got[path]) != tuple(shape):
+            raise ValueError(f"{'/'.join(map(str, path))}: shape {got[path]} != {shape}")
+
+    def leaf(path, _spec):
+        a = tree
+        for k in path:
+            a = a[k]
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev)
+
+    return tree_map_with_path(leaf, specs, is_spec)
+
+
+def lm_params_to_numpy(params: Dict) -> Dict:
+    """The inverse: the same tree as float32 numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), params)

@@ -1,5 +1,24 @@
-"""TNN-as-a-service launcher: the paper's prototype classified through the
-port's Hopper kernels on the card.
+"""Serving launcher: the paper's TNN prototype classified through the port's
+Hopper kernels on the card, or an LM served by the slot engine.
+
+LM serving (``--arch`` one of ``repro_torch.configs.ARCHS``; the reference's
+launcher, whose default arch is llama3.2-3b; the port's default stays
+``tnn-mnist``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --requests 8 --slots 4 --max-new 32 --max-len 256
+
+draws the weights from ``PRNGKey(0)`` on the card (bit for bit the
+reference's ``init_params``), submits ``--requests`` prompts of 4-15 random
+tokens (``np.random.default_rng(0)``, the reference's draws) and serves
+them greedily through ``serve.engine.Engine`` with ``--slots`` slots; it
+prints the reference's ``served N requests / T tokens`` line, then tokens/s,
+the median decode tick and the median prefill. ``--smoke`` serves the
+arch's smoke config (``--smoke --device cpu`` runs on the CPU in seconds).
+The encoder-decoder, SSM and hybrid archs (whisper-tiny, xlstm-125m,
+zamba2-7b) are refused (exit 2), as is ``--mesh`` with an LM arch.
+
+TNN serving:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tnn-mnist \
         --sites 625 --slots 64 --requests 512 --train-waves 4 --impl pallas
@@ -42,12 +61,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import random as _random
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.tnn_mnist import crop_field, launcher_network_config
 from repro_torch.core.network import (
     encode_images, init_network, network_forward, network_train_wave,
@@ -55,6 +76,8 @@ from repro_torch.core.network import (
 from repro_torch.data.mnist_like import digits
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
+from repro_torch.models import model as lm_model
+from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.tnn_engine import ClassifyRequest, ServeStats, TNNEngine
 
 WARMUP_ROWS = 16
@@ -186,12 +209,70 @@ def serve_tnn(args: argparse.Namespace) -> ServeReport:
                        version_stats=by_version)
 
 
+@dataclasses.dataclass
+class LMServeReport:
+    """What one LM launcher run produced."""
+
+    cfg: object                  # the served ModelConfig
+    params: Dict                 # the float32 weights (PRNGKey(0))
+    engine: Optional[Engine]     # with its compute copy and cache
+    done: Dict[int, Request]     # uid -> request (prompt, out_tokens)
+    wall_s: float                # submit to the last request done
+    tokens: int
+    tokens_per_s: float
+    decode_ms: float             # median decode tick (host wall, ends in a sync)
+    prefill_ms: float            # median one-row prefill
+
+
+def lm_requests(cfg, n: int, max_new: int) -> List[Request]:
+    """The reference launcher's requests: prompts of 4-15 tokens drawn from
+    ``np.random.default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(4, 16))),
+                    max_new_tokens=max_new) for uid in range(n)]
+
+
+def serve_lm(args: argparse.Namespace, cfg=None) -> LMServeReport:
+    """Serve ``args.requests`` requests of ``args.arch`` (``cfg`` in place
+    of its config, e.g. one cut in depth) with weights from ``PRNGKey(0)``."""
+    device = resolve_device(args.device)
+    if cfg is None:
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"serving {cfg.name} ({cfg.n_params():,} parameters) on {where}", flush=True)
+    params = lm_model.init_params(cfg, _random.PRNGKey(0), device)
+    eng = Engine(cfg, params, n_slots=args.slots, max_len=args.max_len, device=device)
+    t0 = time.perf_counter()
+    for req in lm_requests(cfg, args.requests, args.max_new):
+        eng.submit(req)
+    done = eng.run_until_done()
+    wall = time.perf_counter() - t0
+    total = sum(len(r.out_tokens) for r in done.values())
+    decode_ms = float(np.median(eng.decode_ms)) if eng.decode_ms else 0.0
+    prefill_ms = float(np.median(eng.prefill_ms)) if eng.prefill_ms else 0.0
+    print(f"served {len(done)} requests / {total} tokens in {wall:.2f}s")
+    print(f"[lm-stats] {total / wall:.1f} tokens/s  decode {decode_ms:.3f} ms a tick "
+          f"({len(eng.decode_ms)} ticks, {args.slots} slots)  prefill {prefill_ms:.3f} ms "
+          f"({len(eng.prefill_ms)} prompts)", flush=True)
+    return LMServeReport(cfg=cfg, params=params, engine=eng, done=done, wall_s=wall,
+                         tokens=total, tokens_per_s=total / wall, decode_ms=decode_ms,
+                         prefill_ms=prefill_ms)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="tnn-mnist", choices=("tnn-mnist",),
-                    help="the port serves the TNN prototype only")
+    ap.add_argument("--arch", default="tnn-mnist", choices=("tnn-mnist", *ARCHS),
+                    help="tnn-mnist (the default) or an LM arch")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=2)
+    # LM options (the reference launcher's)
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: serve the arch's smoke config (tiny widths)")
+    ap.add_argument("--max-new", type=int, default=8,
+                    help="LM: most tokens generated a request")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="LM: cache positions a slot holds")
+    # tnn-mnist options
     ap.add_argument("--sites", type=int, default=64,
                     help="patch sites, a perfect square (625 = full width)")
     ap.add_argument("--depth", type=int, default=2,
@@ -231,11 +312,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="the mesh's backend (default nccl on cuda, gloo on "
                          "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.arch != "tnn-mnist":
+        try:
+            lm_model.check_supported(get_config(args.arch))
+        except NotImplementedError as e:
+            ap.error(str(e))
+        if args.mesh:
+            ap.error("--mesh serves tnn-mnist only; LM sharding is ROADMAP Queue 1 item 6(e)")
+    return args
 
 
-def main(argv: Optional[Sequence[str]] = None) -> ServeReport:
-    return serve_tnn(parse_args(argv))
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    if args.arch == "tnn-mnist":
+        return serve_tnn(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -147,14 +147,18 @@ def split(key: KeyLike, num: int = 2) -> torch.Tensor:
     return torch.stack([a, b], dim=-1).to(torch.uint32)
 
 
-def random_bits(key: KeyLike, shape: Sequence[int], device="cpu") -> torch.Tensor:
+def random_bits(key: KeyLike, shape: Sequence[int], device="cpu", *,
+                offset: int = 0) -> torch.Tensor:
     """32 random bits per element of ``shape`` as int64 in [0, 2**32):
     ``b1 ^ b2`` of the threefry of the element's 64-bit row-major index.
     A batch of keys (..., 2) gives (..., *shape), each key over its own
-    index from 0 (what ``jax.vmap`` of the draw over the keys gives)."""
+    index from 0 (what ``jax.vmap`` of the draw over the keys gives).
+    ``offset`` shifts every index: the draw is then the window
+    ``[offset, offset + prod(shape))`` of a longer draw's flat bits, so a
+    large draw can be made in chunks."""
     k1, k2 = _key_pair(key, device)
     n = math.prod(shape)
-    j = torch.arange(n, dtype=torch.int64, device=device)
+    j = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     lead = k1.dim()
     k1 = k1.reshape(*k1.shape, 1)
     k2 = k2.reshape(*k2.shape, 1)
@@ -330,12 +334,53 @@ def unit_to_normal(floats: torch.Tensor) -> torch.Tensor:
     return erf_inv(unit_to_range(floats, NORMAL_LO, 1.0)) * SQRT2
 
 
-def normal(key: KeyLike, shape: Sequence[int], device="cpu") -> torch.Tensor:
+def normal(key: KeyLike, shape: Sequence[int], device="cpu", *,
+           offset: int = 0) -> torch.Tensor:
     """float32 standard normals of ``shape``, as
     ``jax.random.normal(key, shape, float32)``: ``sqrt(2) * erf_inv(u)`` of
     ``u = uniform(key, shape, minval=nextafter(-1, 0), maxval=1)``; a batch
-    of keys (..., 2) gives (..., *shape)."""
-    return unit_to_normal(bits_to_unit_float(random_bits(key, shape, device)))
+    of keys (..., 2) gives (..., *shape). ``offset`` draws the window of a
+    longer draw's flat elements that starts there (:func:`random_bits`)."""
+    return unit_to_normal(bits_to_unit_float(
+        random_bits(key, shape, device, offset=offset)))
+
+
+BF16_TINY = 2.0 ** -126                # jnp.finfo(bfloat16).tiny
+
+
+def gumbel(key: KeyLike, shape: Sequence[int], device="cpu",
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Gumbel draws of ``shape``, as ``jax.random.gumbel(key, shape, dtype)``
+    in its default ("low") mode: ``-log(-log(u))`` of
+    ``u = uniform(key, shape, minval=tiny, maxval=1)``, with ``log`` the
+    float32 log that XLA's CPU backend compiles (:func:`_log`). For
+    bfloat16 the uniform's 7 mantissa bits are the top 7 of each word's low
+    byte (the reference draws 8 bits for a type of fewer than 8 mantissa
+    bits), and each step is computed in float32 and
+    rounded to bfloat16, as XLA's CPU backend runs bfloat16 arithmetic."""
+    if dtype == torch.float32:
+        u = uniform(key, shape, device, minval=_FLT_MIN, maxval=1.0)
+        return -_log(-_log(u))
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gumbel takes float32 or bfloat16, not {dtype}")
+    bits = random_bits(key, shape, device) & 0xFF
+    pattern = ((bits >> 1) | 0x3F80).to(torch.int16)
+    floats = pattern.view(torch.bfloat16) - 1.0
+    tiny = torch.tensor(BF16_TINY, dtype=torch.bfloat16, device=floats.device)
+    span = torch.tensor(1.0, dtype=torch.bfloat16, device=floats.device) - tiny
+    u = torch.maximum(tiny, (floats.float() * span.float() + tiny.float())
+                      .to(torch.bfloat16))
+    inner = (-_log(u.float())).to(torch.bfloat16)
+    return (-_log(inner.float())).to(torch.bfloat16)
+
+
+def categorical(key: KeyLike, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row of ``logits`` (..., n), as
+    ``jax.random.categorical(key, logits)``: the argmax over the last axis
+    of ``logits + gumbel(key, logits.shape, logits.dtype)`` (the first index
+    on ties, as ``jnp.argmax``). Returns int64 indices of shape (...)."""
+    g = gumbel(key, tuple(logits.shape), logits.device, logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
 
 
 _NARROW = {torch.int8: 8, torch.uint8: 8, torch.int16: 16, torch.int32: 32}

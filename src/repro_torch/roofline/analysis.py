@@ -377,3 +377,54 @@ def gauss_update_work(C: int, B: int, p: int, q: int) -> Work:
     counts of every (row, synapse)."""
     return Work(bytes=B * C * (p + q) + 2 * C * p * q + 4 * C * p * q,
                 scalar_ops=3 * C * B * p * q)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: one batched decode step
+# ---------------------------------------------------------------------------
+
+# The H100 SXM's dense bf16 tensor-core rate (data sheet, 700 W): the decode
+# step's products run at it (their time is a few percent of the bytes').
+BF16_OPS_PER_S = 989e12
+
+
+def lm_cache_bytes_per_position(cfg, cache_bytes: int = 2) -> int:
+    """KV-cache bytes one position holds over all layers: K and V of every
+    KV head (GQA), or the latent and the RoPE key (MLA)."""
+    per_layer = {"dense": 2 * cfg.n_kv_heads * cfg.head_dim,
+                 "moe": 2 * cfg.n_kv_heads * cfg.head_dim,
+                 "mla": cfg.kv_lora_rank + cfg.qk_rope_dim}
+    return cache_bytes * sum(per_layer[k] for k in cfg.layer_kinds)
+
+
+def lm_decode_work(cfg, lengths: Sequence[int], dtype_bytes: int = 2,
+                   cache_bytes: int = 2) -> Tuple[float, float]:
+    """(bytes, operations) of one batched decode step of ``cfg``
+    (``models.model.decode_step``) over rows attending to ``lengths``
+    cached positions each (the new token's included): every weight read
+    once at the compute dtype, except the embedding, of which only the B
+    gathered rows are read (unless tied: the unembedding reads it whole);
+    each row's valid KV-cache positions read and its new position written;
+    the logits written. An MoE layer counts all its experts' weights (the
+    reference's decode dispatch runs every expert over its capacity
+    buffer). Operations: two per weight per row, and the scores and
+    weighted values of each cached position."""
+    B = len(lengths)
+    d, v = cfg.d_model, cfg.vocab_size
+    embed = v * d
+    weights = cfg.n_params() - (0 if cfg.tie_embeddings else embed)
+    per_pos = lm_cache_bytes_per_position(cfg, cache_bytes)
+    nbytes = (dtype_bytes * (weights + B * d) + per_pos * (sum(lengths) + B)
+              + dtype_bytes * B * v)
+    active = cfg.n_active_params() - (0 if cfg.tie_embeddings else embed)
+    attn = sum(4 * cfg.n_heads * cfg.head_dim for _ in cfg.layer_kinds)
+    ops = 2 * B * active + attn * sum(lengths)
+    return float(nbytes), float(ops)
+
+
+def lm_decode_bound(cfg, lengths: Sequence[int], dtype_bytes: int = 2,
+                    cache_bytes: int = 2) -> Tuple[float, str, float]:
+    """(bound ms, "bytes" or "operations", bytes-only ms) of
+    :func:`lm_decode_work` on an H100 SXM."""
+    nbytes, ops = lm_decode_work(cfg, lengths, dtype_bytes, cache_bytes)
+    return bound(nbytes, 1e3 * ops / BF16_OPS_PER_S)

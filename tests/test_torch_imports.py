@@ -13,6 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch.configs import smoke_config
 from repro_torch.configs.tnn_mnist import launcher_network_config
 from repro_torch.core.column import init_weights
 from repro_torch.core.layer import init_layer, layer_uniforms
@@ -24,7 +25,9 @@ from repro_torch.launch.mesh import make_mesh_2d
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import tnn_mnist as launch_flagship
 from repro_torch.launch import train as launch_train
+from repro_torch.models import model as lm_model
 from repro_torch.random import PRNGKey
+from repro_torch.serve.engine import Engine as LMEngine
 from repro_torch.serve.tnn_engine import TNNEngine
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -41,7 +44,10 @@ def test_port_imports_no_jax():
     assert "repro_torch.kernels.tnn_wave" in mods and len(mods) >= 20
     for new in ("launch.loadgen", "launch.tnn_mnist", "core.hwmodel", "core.macros",
                 "launch.dryrun", "roofline.analysis", "utils.tracing",
-                "launch.mesh", "launch.collective_probe"):
+                "launch.mesh", "launch.collective_probe", "configs.base",
+                "configs.llama3_2_3b", "configs.mixtral_8x22b", "configs.minicpm3_4b",
+                "models.params", "models.layers", "models.moe", "models.model",
+                "serve.engine"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -106,6 +112,20 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
         make_mesh_2d(1, 1)
     assert launch_serve.parse_args([]).mesh is None
     assert launch_train.parse_args([]).mesh is None
+    # the LM path (its launcher's --arch default stays tnn-mnist)
+    assert launch_serve.parse_args([]).arch == "tnn-mnist"
+    lm = smoke_config("llama3.2-3b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_serve.main(["--arch", "llama3.2-3b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_model.init_params(lm, key)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_model.init_cache(lm, 1, 8)
+    lm_params = lm_model.init_params(lm, key, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        LMEngine(lm, lm_params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.lm_params_from_numpy(convert.lm_params_to_numpy(lm_params), lm)
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

@@ -200,3 +200,37 @@ def test_sqrt32_is_correctly_rounded():
                         np.arange(0, 64, dtype=np.float32)])
     got = t_random.sqrt32(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), np.sqrt(x).view(np.uint32))
+
+
+def test_counter_offset_draws_a_window():
+    """``random_bits``/``normal`` with an offset give the window of the
+    longer draw's flat elements (how the LM weights are drawn in chunks)."""
+    key = t_random.PRNGKey(11)
+    full = jax.random.normal(jax.random.PRNGKey(11), (3, 50_000), jnp.float32)
+    flat = np.asarray(full).reshape(-1)
+    for lo, n in ((0, 1000), (49_990, 20), (123_456, 26_544)):
+        got = t_random.normal(key, (n,), offset=lo)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      flat[lo:lo + n].view(np.uint32))
+    np.testing.assert_array_equal(
+        t_random.random_bits(key, (7,), offset=5).numpy(),
+        t_random.random_bits(key, (12,)).numpy()[5:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gumbel_and_categorical_match_jax(dtype):
+    """Gumbel draws (40,000 over each of three keys) bit for bit, and
+    ``categorical`` (the Gumbel-max argmax) on the same logits."""
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    for seed in (0, 7, 2**32 - 1):
+        want = jax.random.gumbel(jax.random.PRNGKey(seed), (8, 5000), jdt)
+        got = t_random.gumbel(t_random.PRNGKey(seed), (8, 5000), dtype=tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(np.asarray(want.astype(jnp.float32)).view(np.uint32),
+                                      got.float().numpy().view(np.uint32))
+    logits = np.random.default_rng(0).standard_normal((6, 300)).astype(np.float32)
+    for seed in (1, 2, 3):
+        want = jax.random.categorical(jax.random.PRNGKey(seed), jnp.asarray(logits, jdt))
+        got = t_random.categorical(t_random.PRNGKey(seed), torch.from_numpy(logits).to(tdt))
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
