@@ -100,9 +100,26 @@ Phases, each of which fails the run on error:
             traced decode tick (idle share, top ops) against the decode
             step's byte bound; llama at 2 layers on the card and the CPU
             (bf16 and f32, logits and increments); minicpm3-4b at full size
-            and mixtral-8x22b cut to 2 layers served with the same checks;
-            the seven smoke configs card against the CPU. No TNN kernel may
-            launch.
+            and mixtral-8x22b cut to 2 layers served with the same checks.
+            Slice 10: zamba2-7b at full size (81 layers, 5,737,416,000
+            parameters) served, a float32 re-serve held to float32 one-slot
+            runs (in bf16 its depth amplifies rounding past the hold's
+            tolerance), its draw windows
+            (embedding, stacked Mamba input projection, shared attention,
+            an unstacked tail leaf) bit-equal to the CPU's, and one unit
+            plus the tail card against the CPU; xlstm-125m at
+            full size served and held, then card against the CPU;
+            whisper-tiny at full size with seeded frames (2, 1500, 384),
+            prefill + 16 decode steps card against the CPU; internvl2-76b
+            at full width cut to 2 layers, a 256-position seeded embeds
+            prefix, serving held to training in float32; the TNN-frontend
+            entry point (``launch.tnn_frontend_lm``) --impl pallas and
+            direct on the card and direct on the CPU, equal spike times,
+            winners and weights, launches counted (pallas: the column,
+            STDP and threefry kernels; direct: threefry); all ten smoke
+            configs card against the CPU, with frames or embeds where the
+            family takes them. No TNN kernel may launch on the LM serve
+            paths.
 16. report  one JSON line with the serve, train, slice-6/7/8/9 and shape
             numbers, one with every kernel's numbers, the card's nvidia-smi
             line, then the result line.
@@ -114,6 +131,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -155,7 +173,9 @@ from repro_torch.launch import loadgen as t_loadgen  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_2d, spawn_ranks  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import tnn_mnist as t_flagship  # noqa: E402
+from repro_torch.launch import tnn_frontend_lm as t_frontend  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.configs import ARCHS as LM_ARCHS  # noqa: E402
 from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.configs import smoke_config as lm_smoke_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -2075,8 +2095,14 @@ LM_WINDOW = 1 << 20          # floats of each draw window checked against the CP
 LM_MAX_NEW, LM_MAX_LEN = 32, 256
 LM_SERVE = ["--requests", "8", "--slots", "4", "--max-new", str(LM_MAX_NEW),
             "--max-len", str(LM_MAX_LEN)]
-LM_SMOKE_ARCHS = ("llama3.2-3b", "mistral-nemo-12b", "qwen1.5-4b", "minicpm3-4b",
-                  "mixtral-8x22b", "grok-1-314b", "internvl2-76b")
+LM_SMOKE_ARCHS = tuple(LM_ARCHS)   # all ten, with frames or embeds where taken
+# the draw windows held to the CPU's: the embedding and one stacked weight,
+# and for zamba2 also the shared block and an unstacked tail leaf
+LM_WINDOWS = {
+    "llama3.2-3b": (("embed", "embedding"), ("trunk", "0_dense", "attn", "wo")),
+    "zamba2-7b": (("embed", "embedding"), ("trunk", "0_mamba", "mamba", "win"),
+                  ("shared", "attn", "wq"), ("tail", "2_mamba", "mamba", "wout")),
+}
 # stated tolerances. Card against card (batched engine vs a one-slot run of
 # the same tokens, bf16): argmax equal wherever the top-two margin exceeds
 # the largest |dlogit|; trunk increments within 0.1 RMS of their RMS (the
@@ -2088,6 +2114,19 @@ LM_SMOKE_ARCHS = ("llama3.2-3b", "mistral-nemo-12b", "qwen1.5-4b", "minicpm3-4b"
 # in its own order), increments within 0.1 RMS.
 LM_INC_RMS = 0.1
 LM_F32 = dict(logits=1e-4, inc_max=1e-4)
+# Logits of the tied-embedding archs (xlstm-125m, whisper-tiny) reach a few
+# hundred (a d-term dot product with the std-1.0 embedding), where the
+# float32 rounding of one logit is above 1e-4 and one bf16 ulp is 1 or 2.
+# So the float32 logit tolerance is 1e-4 or LM_F32_REL of the largest
+# |logit|, whichever is larger (the same for the untied archs, whose logits
+# stay under 10), and the bf16 one is never below one bf16 ulp of the
+# largest |logit| (two bf16 results cannot be closer than a rounding step).
+LM_F32_REL = 1e-5
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
 
 
 def _rms_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2095,13 +2134,13 @@ def _rms_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def lm_draw_windows(cfg, params) -> dict:
-    """(a) The first and last LM_WINDOW floats of the embedding and of one
-    stacked weight, drawn on the card, against the CPU's draw of the same
-    counter windows, bit for bit."""
+    """(a) The first and last LM_WINDOW floats of each leaf of
+    ``LM_WINDOWS[cfg.name]``, drawn on the card, against the CPU's draw of
+    the same counter windows, bit for bit."""
     keys = lm_model.param_keys(cfg, t_random.PRNGKey(0))
     specs = dict(lm_tree_flatten(lm_model.build_specs(cfg), lm_is_spec))
     out = {}
-    for path in (("embed", "embedding"), ("trunk", f"0_{cfg.layout_unit[0]}", "attn", "wo")):
+    for path in LM_WINDOWS[cfg.name]:
         leaf = params
         for k in path:
             leaf = leaf[k]
@@ -2120,11 +2159,11 @@ def lm_draw_windows(cfg, params) -> dict:
     return out
 
 
-def lm_one_slot(cfg, params, req, dev):
+def lm_one_slot(cfg, params, req, dev, cache_dtype=torch.bfloat16):
     """Teacher-forced one-slot run of a served request's tokens: its prompt
     prefilled, then each output token but the last decoded at its position.
     Returns the (logits, increment) rows of each output token, float32."""
-    cache = lm_model.init_cache(cfg, 1, LM_MAX_LEN, torch.bfloat16, dev)
+    cache = lm_model.init_cache(cfg, 1, LM_MAX_LEN, cache_dtype, dev)
     prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64, device=dev)[None]
     logits, cache, inc = lm_model.prefill(params, cfg, prompt, cache, increment=True)
     rows = [(logits[0].float().cpu(), inc[0, -1].cpu())]
@@ -2136,12 +2175,12 @@ def lm_one_slot(cfg, params, req, dev):
     return rows
 
 
-def lm_hold(cfg, params, done, dev, what: str) -> dict:
+def lm_hold(cfg, params, done, dev, what: str, cache_dtype=torch.bfloat16) -> dict:
     """Check (b): every recorded request held to a one-slot run of the same
     tokens on ``dev`` (its params): the largest |dlogit|; the argmax equal
     wherever the one-slot top-two margin exceeds it (else a near tie,
     counted); the trunk increments' largest RMS difference, relative."""
-    rows = {u: lm_one_slot(cfg, params, r, dev) for u, r in done.items()}
+    rows = {u: lm_one_slot(cfg, params, r, dev, cache_dtype) for u, r in done.items()}
     d_logit = max(float((a - lg).abs().max())
                   for u, r in done.items() for a, (lg, _) in zip(r.logits, rows[u]))
     ties = disagree = flips = steps = 0
@@ -2170,10 +2209,11 @@ def lm_hold(cfg, params, done, dev, what: str) -> dict:
             "argmax_differences": flips, "inc_rms_rel": inc_rel}
 
 
-def lm_recorded(cfg, params, n: int, slots: int, dev):
+def lm_recorded(cfg, params, n: int, slots: int, dev, cache_dtype=torch.bfloat16):
     """The launcher's requests served again with the engine recording its
-    logits and increments (same shapes, so the same tokens)."""
-    eng = LMEngine(cfg, params, n_slots=slots, max_len=LM_MAX_LEN, device=dev, record=True)
+    logits and increments (same shapes and dtypes: the same tokens)."""
+    eng = LMEngine(cfg, params, n_slots=slots, max_len=LM_MAX_LEN, device=dev, record=True,
+                   cache_dtype=cache_dtype)
     for req in launch_serve.lm_requests(cfg, n, LM_MAX_NEW):
         eng.submit(req)
     return eng.run_until_done(), eng
@@ -2195,10 +2235,16 @@ def lm_trace_decode(eng, cfg, lengths) -> dict:
     return {"events_ms": ev_ms, **tr}
 
 
-def lm_serve_case(name: str, argv, dev, smi: str, cfg=None) -> dict:
-    """Serve through the launcher (weights drawn on the card), then hold
-    every request to a one-slot run (check (b)), trace a decode pass and
-    price it. Returns the numbers and the report (its weights)."""
+def lm_serve_case(name: str, argv, dev, smi: str, cfg=None, hold_dtype=None) -> dict:
+    """Serve through the launcher (weights drawn on the card), trace a
+    decode pass of its engine and price it, then hold every request to a
+    one-slot run (check (b)). ``hold_dtype="float32"`` holds a float32
+    re-serve of the same requests (float32 cache) to float32 one-slot runs
+    instead of the launcher's bf16 tokens: for a model whose depth
+    amplifies bf16 rounding until the batched and one-row bf16 runs are
+    apart everywhere (zamba2-7b, PERF.md), the hold can only show that the
+    rows do not couple where rounding is small. Returns the numbers and the
+    report (its weights)."""
     args = launch_serve.parse_args(argv)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2213,18 +2259,28 @@ def lm_serve_case(name: str, argv, dev, smi: str, cfg=None) -> dict:
     cfg = rep.cfg
     tokens = {u: list(r.out_tokens) for u, r in rep.done.items()}
     n_ticks, slots = len(rep.engine.decode_ms), rep.engine.n_slots
-    rep.engine = None
-    gc.collect()
-    torch.cuda.empty_cache()
-    done, eng = lm_recorded(cfg, rep.params, args.requests, slots, dev)
-    if {u: r.out_tokens for u, r in done.items()} != tokens:
-        raise AssertionError(f"{name}: the recorded run's tokens differ from the launcher's")
-    held = lm_hold(cfg, eng.params, done, dev, name)
-    mean_len = int(np.mean([len(r.prompt) for r in done.values()])) + LM_MAX_NEW // 2
+    mean_len = int(np.mean([len(r.prompt) for r in rep.done.values()])) + LM_MAX_NEW // 2
     lengths = [mean_len] * slots
     bound_ms, bound_by, _ = RL.lm_decode_bound(cfg, lengths)
     nbytes, ops = RL.lm_decode_work(cfg, lengths)
-    trace = lm_trace_decode(eng, cfg, lengths)
+    trace = lm_trace_decode(rep.engine, cfg, lengths)
+    rep.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hold_dtype is None:
+        done, eng = lm_recorded(cfg, rep.params, args.requests, slots, dev)
+        if {u: r.out_tokens for u, r in done.items()} != tokens:
+            raise AssertionError(f"{name}: the recorded run's tokens differ from the launcher's")
+        held = lm_hold(cfg, eng.params, done, dev, name)
+    else:
+        dt = lm_model.as_dtype(hold_dtype)
+        cfg_h = dataclasses.replace(cfg, dtype=hold_dtype)
+        done, eng = lm_recorded(cfg_h, rep.params, args.requests, slots, dev, dt)
+        same = sum(a == b for u, r in done.items() for a, b in zip(r.out_tokens, tokens[u]))
+        print(f"  {name}: the {hold_dtype} re-serve shares {same} of "
+              f"{sum(map(len, tokens.values()))} tokens with the launcher's bf16 serve",
+              flush=True)
+        held = lm_hold(cfg_h, eng.params, done, dev, f"{name} ({hold_dtype} hold)", dt)
     print(f"  {name} ({smi}): {rep.tokens} tokens in {rep.wall_s:.3f} s = "
           f"{rep.tokens_per_s:.1f} tokens/s; decode tick median {rep.decode_ms:.3f} ms "
           f"({n_ticks} ticks of {slots} slots), {trace['events_ms']:.3f} ms by CUDA events; "
@@ -2233,7 +2289,7 @@ def lm_serve_case(name: str, argv, dev, smi: str, cfg=None) -> dict:
           f"{peak / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB held before; "
           f"launcher {launcher_s:.2f} s with the draw", flush=True)
     del eng
-    return {"params": cfg.n_params(), "requests": len(done), "tokens": rep.tokens,
+    return {"params": lm_model.param_count(cfg), "requests": len(done), "tokens": rep.tokens,
             "wall_s": rep.wall_s, "tokens_per_s": rep.tokens_per_s,
             "decode_ms": rep.decode_ms, "decode_events_ms": trace["events_ms"],
             "prefill_ms": rep.prefill_ms, "ticks": n_ticks, "slots": slots,
@@ -2244,38 +2300,59 @@ def lm_serve_case(name: str, argv, dev, smi: str, cfg=None) -> dict:
             "held": held}, rep
 
 
-def _lm_run(cfg, params, prompt, feed, dev, steps: int = 8):
-    """Prefill of ``prompt`` (2 rows), then ``steps`` decode steps of the
-    ``feed`` tokens (None: its own greedy tokens) on ``dev``, cache and
-    compute in ``cfg.dtype``. Returns the
-    (logits, increment) rows of each step, float32 on the host, and the
-    tokens fed."""
+def lm_extras(cfg, B: int, seed: int) -> dict:
+    """The family's extra inputs, drawn from a numpy seed (never zeros: a
+    zero input would hide a broken cross-attention or projector): ``frames``
+    (B, enc_seq, d) for the encoder-decoder, ``embeds`` (B, frontend_len, d)
+    for the VLM prefix; float32 on the host."""
+    rng = np.random.default_rng(seed)
+    if cfg.n_enc_layers:
+        shape, name = (B, cfg.enc_seq, cfg.d_model), "frames"
+    elif cfg.frontend == "vision_stub":
+        shape, name = (B, cfg.frontend_len, cfg.d_model), "embeds"
+    else:
+        return {}
+    return {name: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))}
+
+
+def _lm_run(cfg, params, prompt, feed, dev, steps: int = 8, extras=None):
+    """Prefill of ``prompt`` (2 rows, after any embeds prefix, with any
+    frames), then ``steps`` decode steps of the ``feed`` tokens (None: its
+    own greedy tokens) on ``dev``, cache and compute in ``cfg.dtype``.
+    Returns the (logits, increment) rows of each step, float32 on the host,
+    and the tokens fed."""
+    extras = {k: v.to(dev) for k, v in (extras or {}).items()}
+    P = extras["embeds"].shape[1] if "embeds" in extras else 0
     p = lm_model.compute_params(params, cfg.dtype)
     # the cache in the compute dtype: a bf16 cache would round the two
     # sides' float32 K/V apart wherever they straddle a bf16 rounding point
-    cache = lm_model.init_cache(cfg, prompt.shape[0], 32, cfg.dtype, dev)
-    logits, cache, inc = lm_model.prefill(p, cfg, prompt.to(dev), cache, increment=True)
+    cache = lm_model.init_cache(cfg, prompt.shape[0], P + prompt.shape[1] + steps + 1,
+                                cfg.dtype, dev)
+    logits, cache, inc = lm_model.prefill(p, cfg, prompt.to(dev), cache, increment=True,
+                                          **extras)
     rows, fed = [(logits.float().cpu(), inc[:, -1].cpu())], []
     for i in range(steps):
         fed.append(torch.argmax(logits, -1).cpu() if feed is None else feed[i])
-        logits, cache, inc = lm_model.decode_step(p, cfg, fed[-1].to(dev), prompt.shape[1] + i,
-                                                  cache, increment=True)
+        logits, cache, inc = lm_model.decode_step(p, cfg, fed[-1].to(dev),
+                                                  P + prompt.shape[1] + i, cache,
+                                                  increment=True)
         rows.append((logits.float().cpu(), inc.cpu()))
     return rows, fed
 
 
-def lm_card_vs_cpu(cfg, params_card, dev, tag: str) -> dict:
-    """Check (c)/(f): prefill of 2 rows of 12 tokens plus 8 decode steps
-    teacher-forced on the card's bf16 greedy tokens, on the card and on the
-    CPU from the same weights, in bfloat16 and in float32: logits and trunk
-    increments at the stated tolerances (also each side's bf16 logits
-    against its own f32 ones, printed: the rounding the bf16 tolerance
-    must hold)."""
+def lm_card_vs_cpu(cfg, params_card, dev, tag: str, steps: int = 8, extras=None) -> dict:
+    """Check (c)/(f): prefill of 2 rows of 12 tokens (with the family's
+    ``extras``: frames or embeds) plus ``steps`` decode steps teacher-forced
+    on the card's bf16 greedy tokens, on the card and on the CPU from the
+    same weights, in bfloat16 and in float32: logits and trunk increments at
+    the stated tolerances (also each side's bf16 logits against its own f32
+    ones, printed: the rounding the bf16 tolerance must hold)."""
     params_cpu = lm_tree_map(lambda t: t.cpu(), params_card)
     prompt = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 12)))
     bf, f32 = dataclasses.replace(cfg, dtype="bfloat16"), dataclasses.replace(cfg, dtype="float32")
-    _, feed = _lm_run(bf, params_card, prompt, None, dev)   # the card's greedy tokens
-    runs = {(w, c.dtype): _lm_run(c, p, prompt, feed, d)[0]
+    # the card's greedy tokens
+    _, feed = _lm_run(bf, params_card, prompt, None, dev, steps, extras)
+    runs = {(w, c.dtype): _lm_run(c, p, prompt, feed, d, steps, extras)[0]
             for w, p, d in (("card", params_card, dev), ("cpu", params_cpu, torch.device("cpu")))
             for c in (bf, f32)}
     out = {}
@@ -2287,29 +2364,159 @@ def lm_card_vs_cpu(cfg, params_card, dev, tag: str) -> dict:
                 inc_err = max(inc_err, float((ia - ib).abs().max() / ib.abs().max()))
             else:
                 inc_err = max(inc_err, _rms_rel(ia, ib))
-        out[dtype] = {"max_abs_dlogit": dl, "increment": inc_err}
+        top = max(float(lb.abs().max()) for lb, _ in runs["cpu", dtype])
+        out[dtype] = {"max_abs_dlogit": dl, "increment": inc_err, "max_abs_logit": top}
         if dtype == "float32":
-            ok = dl <= LM_F32["logits"] and inc_err <= LM_F32["inc_max"]
-            print(f"  {tag} float32, card vs CPU (prefill + 8 decode steps): max |dlogit| "
-                  f"{dl:.4g} (tolerance {LM_F32['logits']}), increment max |diff| / max "
-                  f"|inc| {inc_err:.4g} (tolerance {LM_F32['inc_max']})", flush=True)
+            tol = max(LM_F32["logits"], LM_F32_REL * top)
+            ok = dl <= tol and inc_err <= LM_F32["inc_max"]
+            print(f"  {tag} float32, card vs CPU (prefill + {steps} decode steps): max |dlogit| "
+                  f"{dl:.4g} (tolerance {tol:.4g}: {LM_F32['logits']}, or {LM_F32_REL} of the "
+                  f"largest |logit| {top:.4g}), increment max |diff| / max |inc| {inc_err:.4g} "
+                  f"(tolerance {LM_F32['inc_max']})", flush=True)
         else:
             own = {w: max(float((a[0] - b[0]).abs().max()) for a, b in
                           zip(runs[w, "bfloat16"], runs[w, "float32"])) for w in ("card", "cpu")}
-            out[dtype].update(bf16_vs_f32=own)
-            tol = max(own.values())
+            ulp = bf16_ulp(top)
+            out[dtype].update(bf16_vs_f32=own, bf16_ulp=ulp)
+            tol = max(max(own.values()), ulp)
             ok = dl <= tol and inc_err <= LM_INC_RMS
             print(f"  {tag} bfloat16, card vs CPU: max |dlogit| {dl:.4g} (tolerance {tol:.4g}: "
                   f"the larger of each side's max |bf16 - f32| logit difference, card "
-                  f"{own['card']:.4g}, CPU {own['cpu']:.4g}), increment RMS diff / RMS "
+                  f"{own['card']:.4g}, CPU {own['cpu']:.4g}, and one bf16 ulp of the largest "
+                  f"|logit| {top:.4g}, {ulp:.4g}), increment RMS diff / RMS "
                   f"{inc_err:.4g} (tolerance {LM_INC_RMS})", flush=True)
         if not ok:
             raise AssertionError(f"{tag} {dtype}: card and CPU differ beyond the tolerance")
     return out
 
 
+def lm_batch_drift(cfg, params, dev, steps: int = 8, B: int = 4, S: int = 12) -> dict:
+    """How far a batch of B rows drifts from the same rows run one at a
+    time, model level, in float32 (float32 cache) and in bfloat16 (bf16
+    cache): prefill of B seeded prompts, then ``steps`` decode steps of the
+    batch's greedy tokens, each row also alone with the same tokens.
+    Printed, not asserted: it measures how much rounding the model
+    amplifies (the rows do not couple: the float32 hold asserts that)."""
+    out = {}
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S)))
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = lm_model.compute_params(params, dtype)
+        batch, feed = _lm_run(c, p, prompt, None, dev, steps)
+        dl, di = 0.0, 0.0
+        for r in range(B):
+            one, _ = _lm_run(c, p, prompt[r:r + 1], [f[r:r + 1] for f in feed], dev, steps)
+            for (lb, ib), (lo, io) in zip(batch, one):
+                dl = max(dl, float((lb[r] - lo[0]).abs().max()))
+                di = max(di, _rms_rel(ib[r], io[0]))
+        out[dtype] = {"max_abs_dlogit": dl, "inc_rms_rel": di}
+        del p
+    print(f"  {cfg.name}: {B} rows batched against each row alone (prefill of {S} + "
+          f"{steps} steps): float32 max |dlogit| {out['float32']['max_abs_dlogit']:.4g}, "
+          f"increments {out['float32']['inc_rms_rel']:.4g} RMS; bfloat16 "
+          f"{out['bfloat16']['max_abs_dlogit']:.4g}, {out['bfloat16']['inc_rms_rel']:.4g} RMS",
+          flush=True)
+    return out
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_prefix_serving(dev, steps: int = 4) -> dict:
+    """internvl2-76b at full width cut to 2 of 80 layers, float32 on the
+    card: a 256-position embeds prefix (seeded) and 12 tokens; prefill of
+    the prefix and the first 8 tokens, then 4 decode steps of the rest,
+    held to forward_train of all of it (serving equals training: the
+    reference test's 3e-4 / 3e-3 on the logits; increments within 1e-4 of
+    their largest value)."""
+    cfg = dataclasses.replace(get_lm_config("internvl2-76b"), n_layers=2, layout_repeat=2,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    params = lm_model.init_params(cfg, t_random.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    emb = lm_extras(cfg, 2, seed=13)["embeds"].to(dev)
+    P, S = emb.shape[1], 12
+    tok = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab_size, (2, S))).to(dev)
+    full, full_inc = lm_model.forward_train(params, cfg, tok, embeds=emb, increment=True)
+    n = S - steps
+    cache = lm_model.init_cache(cfg, 2, P + S + 1, torch.float32, dev)
+    last, cache, inc = lm_model.prefill(params, cfg, tok[:, :n], cache, embeds=emb,
+                                        increment=True)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    d_pre = float((last - full[:, P + n - 1]).abs().max())
+    inc_err = rel(inc, full_inc[:, :P + n])
+    d_dec = 0.0
+    for i in range(steps):
+        logits, cache, inc = lm_model.decode_step(params, cfg, tok[:, n + i], P + n + i, cache,
+                                                  increment=True)
+        d_dec = max(d_dec, float((logits - full[:, P + n + i]).abs().max()))
+        inc_err = max(inc_err, rel(inc, full_inc[:, P + n + i]))
+    print(f"  internvl2-76b (2 of 80 layers, d = 8192, {lm_model.param_count(cfg):,} "
+          f"parameters drawn in {draw_s:.1f} s), float32, {P}-position embeds prefix: prefill "
+          f"max |dlogit| {d_pre:.4g} (tolerance 3e-4), {steps} decode steps {d_dec:.4g} "
+          f"(3e-3) against forward_train; increments {inc_err:.4g} of their largest "
+          f"(1e-4)", flush=True)
+    if d_pre > 3e-4 or d_dec > 3e-3 or inc_err > 1e-4:
+        raise AssertionError("internvl2-76b prefix: serving differs from training")
+    return {"params": lm_model.param_count(cfg), "draw_s": draw_s, "prefix": P,
+            "prefill_max_abs_dlogit": d_pre, "decode_max_abs_dlogit": d_dec,
+            "inc_max_rel": inc_err}
+
+
+FRONTEND_LAUNCHES = {
+    "pallas": {"tnn_column": t_frontend.WAVES + 1, "stdp_update": t_frontend.WAVES,
+               "threefry": t_frontend.WAVES},
+    "direct": {"threefry": t_frontend.WAVES},
+    "cpu": {},
+}
+
+
+def frontend_phase(dev) -> dict:
+    """The TNN-frontend -> LM entry point (``launch.tnn_frontend_lm``, LM in
+    float32): --impl pallas and direct on the card, direct on the CPU, each
+    with the counts set to 0 just before it. pallas launches the column
+    kernel a wave and once more for the frozen forward, the STDP and
+    threefry kernels a wave; direct only the threefry kernel (its uniforms
+    are drawn on the card). All three give the same trained weights, spike
+    times, winners and embeds; logits within the float32 tolerance."""
+    runs, counts, secs = {}, {}, {}
+    for name, argv in (("pallas", ["--impl", "pallas"]), ("direct", ["--impl", "direct"]),
+                       ("cpu", ["--impl", "direct", "--device", "cpu"])):
+        t0 = time.perf_counter()
+        reset_counts()
+        runs[name] = t_frontend.main(argv + ["--dtype", "float32"])
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        secs[name] = time.perf_counter() - t0
+        want = {k: FRONTEND_LAUNCHES[name].get(k, 0) for k in counts[name]}
+        if counts[name] != want:
+            raise AssertionError(f"frontend {name}: launches {counts[name]}, expected {want}")
+    for name in ("direct", "cpu"):
+        for k in ("weights", "z", "winners", "embeds"):
+            if not torch.equal(runs[name][k], runs["pallas"][k]):
+                raise AssertionError(f"frontend: {k} of {name} differ from pallas")
+    d_card = float((runs["direct"]["logits"] - runs["pallas"]["logits"]).abs().max())
+    d_cpu = float((runs["cpu"]["logits"] - runs["pallas"]["logits"]).abs().max())
+    print(f"  frontend: pallas (card) == direct (card) == CPU: trained weights, spike "
+          f"times, winners, embeds; logits max |d| card {d_card:.4g}, card vs CPU "
+          f"{d_cpu:.4g} (tolerance {LM_F32['logits']}); launches {counts}; seconds {secs}",
+          flush=True)
+    if d_card > LM_F32["logits"] or d_cpu > LM_F32["logits"]:
+        raise AssertionError("frontend: logits differ beyond the float32 tolerance")
+    return {"launches": counts, "seconds": secs, "logits_card_max_abs": d_card,
+            "logits_cpu_max_abs": d_cpu,
+            "winners": runs["pallas"]["winners"][0].tolist()}
+
+
 def lm_phase(dev, smi: str) -> dict:
-    """(a)-(f) of the LM serve path; each model freed before the next."""
+    """(a)-(f) of the LM serve path, then the slice-10 families and the
+    frontend entry point; each model freed before the next."""
     torch.empty(1, device=dev)   # the allocator's stats need it started
     out = {}
     t0 = time.perf_counter()
@@ -2317,22 +2524,19 @@ def lm_phase(dev, smi: str) -> dict:
     out["llama3.2-3b"] = case
     out["llama3.2-3b"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
     del rep
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     cut = dataclasses.replace(get_lm_config("llama3.2-3b"), n_layers=2, layout_repeat=2)
     p2 = lm_model.init_params(cut, t_random.PRNGKey(0), dev)
     out["llama3.2-3b_2layers_card_vs_cpu"] = lm_card_vs_cpu(cut, p2, dev, "llama3.2-3b 2 layers")
     del p2
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     out["seconds_llama"] = time.perf_counter() - t0
     four = ["--requests", "4", "--slots", "4", "--max-new", str(LM_MAX_NEW),
             "--max-len", str(LM_MAX_LEN)]
     case, rep = lm_serve_case("minicpm3-4b", ["--arch", "minicpm3-4b", *four], dev, smi)
     out["minicpm3-4b"] = case
     del rep
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     # mixtral cut to 2 layers, and its capacity factor raised to E / k so no
     # token is dropped: the reference's decode routes all slots as one group
     # (capacity 2 at 4 slots), so at 1.25 a request's tokens depend on the
@@ -2345,10 +2549,55 @@ def lm_phase(dev, smi: str) -> dict:
                               dev, smi, cfg=cut)
     out["mixtral-8x22b_2layers"] = case
     del rep
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
+    out["seconds_slice9"] = time.perf_counter() - t0
+
+    # slice 10: the hybrid and SSM families served at full size, the
+    # encoder-decoder and the VLM prefix at the model level, the frontend
+    t1 = time.perf_counter()
+    # zamba2's 81 layers amplify bf16 rounding until a batched bf16 run and
+    # its one-row runs differ everywhere (PERF.md, Findings): its hold runs in
+    # float32
+    case, rep = lm_serve_case("zamba2-7b", ["--arch", "zamba2-7b", *LM_SERVE], dev, smi,
+                              hold_dtype="float32")
+    out["zamba2-7b"] = case
+    out["zamba2-7b"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
+    out["zamba2-7b"]["batch_drift"] = lm_batch_drift(rep.cfg, rep.params, dev)
+    del rep
+    _free()
+    cut = dataclasses.replace(get_lm_config("zamba2-7b"), n_layers=9, layout_repeat=1)
+    pz = lm_model.init_params(cut, t_random.PRNGKey(0), dev)
+    out["zamba2-7b_1unit_card_vs_cpu"] = lm_card_vs_cpu(
+        cut, pz, dev, "zamba2-7b (one unit of 6 and the 3-block tail)")
+    del pz
+    _free()
+    out["seconds_zamba2"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    case, rep = lm_serve_case("xlstm-125m", ["--arch", "xlstm-125m", *LM_SERVE], dev, smi)
+    out["xlstm-125m"] = case
+    out["xlstm-125m_card_vs_cpu"] = lm_card_vs_cpu(rep.cfg, rep.params, dev, "xlstm-125m")
+    del rep
+    _free()
+    out["seconds_xlstm"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    whisper = get_lm_config("whisper-tiny")
+    pw = lm_model.init_params(whisper, t_random.PRNGKey(0), dev)
+    out["whisper-tiny_card_vs_cpu"] = lm_card_vs_cpu(
+        whisper, pw, dev, f"whisper-tiny (frames (2, {whisper.enc_seq}, {whisper.d_model}))",
+        steps=16, extras=lm_extras(whisper, 2, seed=11))
+    del pw
+    _free()
+    out["seconds_whisper"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["internvl2-76b_2layers_prefix"] = lm_prefix_serving(dev)
+    _free()
+    out["seconds_internvl"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["frontend"] = frontend_phase(dev)
+    out["seconds_frontend"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     smoke = {}
-    for arch in LM_SMOKE_ARCHS:
+    for i, arch in enumerate(LM_SMOKE_ARCHS):
         cfg = lm_smoke_config(arch)
         card = lm_model.init_params(cfg, t_random.PRNGKey(0), dev)
         cpu = lm_model.init_params(cfg, t_random.PRNGKey(0), "cpu")
@@ -2356,9 +2605,14 @@ def lm_phase(dev, smi: str) -> dict:
                   for (_, a), (_, b) in zip(lm_tree_flatten(card), lm_tree_flatten(cpu)))
         if bad:
             raise AssertionError(f"smoke {arch}: {bad} parameters differ card vs CPU")
-        smoke[arch] = lm_card_vs_cpu(cfg, card, dev, f"smoke {arch}")
+        smoke[arch] = lm_card_vs_cpu(cfg, card, dev, f"smoke {arch}",
+                                     extras=lm_extras(cfg, 2, seed=20 + i))
     out["smoke"] = smoke
+    out["seconds_smoke"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
+    print(f"  lm sub-phase seconds: "
+          f"{ {k: round(v, 1) for k, v in out.items() if k.startswith('seconds')} }",
+          flush=True)
     return out
 
 
@@ -2518,8 +2772,9 @@ def main() -> int:
     errs["threefry[window]"] = mesh["window_err"]
 
     t0 = time.perf_counter()
-    phase("lm: LM serving on the card (llama3.2-3b full size, minicpm3-4b, mixtral-8x22b "
-          "cut to 2 layers, the smoke configs against the CPU)")
+    phase("lm: LM serving on the card (llama3.2-3b, minicpm3-4b and zamba2-7b full size, "
+          "mixtral-8x22b cut to 2 layers, xlstm-125m, whisper-tiny, the internvl2-76b "
+          "prefix, the TNN-frontend entry point, the smoke configs against the CPU)")
     lm = lm_phase(dev, smi_line)
     seconds["lm"] = time.perf_counter() - t0
     print(f"  slice-6 to slice-9 phase seconds: {seconds}", flush=True)

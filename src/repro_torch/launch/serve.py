@@ -15,8 +15,11 @@ them greedily through ``serve.engine.Engine`` with ``--slots`` slots; it
 prints the reference's ``served N requests / T tokens`` line, then tokens/s,
 the median decode tick and the median prefill. ``--smoke`` serves the
 arch's smoke config (``--smoke --device cpu`` runs on the CPU in seconds).
-The encoder-decoder, SSM and hybrid archs (whisper-tiny, xlstm-125m,
-zamba2-7b) are refused (exit 2), as is ``--mesh`` with an LM arch.
+Every decoder family serves: the attention decoders, the SSM (xlstm-125m),
+the hybrid (zamba2-7b), the VLM's text trunk. The encoder-decoder
+(whisper-tiny) is refused (exit 2: requests carry no encoder frames,
+``serve.engine.check_servable``), as is ``--mesh`` with an LM arch. The
+parameter count printed is the spec tree's, the floats drawn.
 
 TNN serving:
 
@@ -77,7 +80,7 @@ from repro_torch.data.mnist_like import digits
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
 from repro_torch.models import model as lm_model
-from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.engine import Engine, Request, check_servable
 from repro_torch.serve.tnn_engine import ClassifyRequest, ServeStats, TNNEngine
 
 WARMUP_ROWS = 16
@@ -239,7 +242,8 @@ def serve_lm(args: argparse.Namespace, cfg=None) -> LMServeReport:
     if cfg is None:
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"serving {cfg.name} ({cfg.n_params():,} parameters) on {where}", flush=True)
+    print(f"serving {cfg.name} ({lm_model.param_count(cfg):,} parameters) on {where}",
+          flush=True)
     params = lm_model.init_params(cfg, _random.PRNGKey(0), device)
     eng = Engine(cfg, params, n_slots=args.slots, max_len=args.max_len, device=device)
     t0 = time.perf_counter()
@@ -315,8 +319,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.arch != "tnn-mnist":
         try:
-            lm_model.check_supported(get_config(args.arch))
-        except NotImplementedError as e:
+            check_servable(get_config(args.arch))
+        except ValueError as e:
             ap.error(str(e))
         if args.mesh:
             ap.error("--mesh serves tnn-mnist only; LM sharding is ROADMAP Queue 1 item 6(e)")

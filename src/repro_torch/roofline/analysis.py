@@ -32,6 +32,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.models import model as lm_model
+
 
 @dataclasses.dataclass(frozen=True)
 class MachineProfile:
@@ -390,35 +392,82 @@ BF16_OPS_PER_S = 989e12
 
 def lm_cache_bytes_per_position(cfg, cache_bytes: int = 2) -> int:
     """KV-cache bytes one position holds over all layers: K and V of every
-    KV head (GQA), or the latent and the RoPE key (MLA)."""
-    per_layer = {"dense": 2 * cfg.n_kv_heads * cfg.head_dim,
-                 "moe": 2 * cfg.n_kv_heads * cfg.head_dim,
+    KV head (GQA, the decoder's self-attention, and each invocation of
+    zamba2's shared attention, which has its own cache), or the latent and
+    the RoPE key (MLA); recurrent blocks hold none."""
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim
+    per_layer = {"dense": kv, "moe": kv, "shared_attn": kv, "dec": kv,
                  "mla": cfg.kv_lora_rank + cfg.qk_rope_dim}
-    return cache_bytes * sum(per_layer[k] for k in cfg.layer_kinds)
+    return cache_bytes * sum(per_layer.get(k, 0) for k in cfg.layer_kinds)
+
+
+def lm_state_bytes_per_row(cfg, cache_bytes: int = 2) -> int:
+    """Recurrent state one row holds over all layers, which a decode step
+    reads and writes: Mamba's float32 (heads, N, P) state and its (K - 1)
+    conv window in the cache dtype; the mLSTM's float32 matrix memory and
+    normaliser; the sLSTM's four float32 vectors."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = cfg.n_heads
+    dk = d_in // max(H, 1)
+    per_layer = {
+        "mamba": 4 * d_in * cfg.ssm_state
+        + cache_bytes * (cfg.conv_width - 1) * (d_in + 2 * cfg.ssm_state),
+        "mlstm": 4 * H * dk * (dk + 1),
+        "slstm": 4 * 4 * cfg.d_model,
+    }
+    return sum(per_layer.get(k, 0) for k in cfg.layer_kinds)
+
+
+def lm_decode_weights(cfg) -> int:
+    """Weights one decode step reads: the leaves ``init_params`` draws
+    (``models.model.param_count``) but the encoder and the frontend
+    projector, which decode does not run, and the embedding, of which it
+    reads only the gathered rows, unless tied (the unembedding then reads it
+    whole). zamba2's shared block counts once."""
+    n = (lm_model.param_count(cfg) - lm_model.param_count(cfg, "encoder")
+         - lm_model.param_count(cfg, "frontend_proj"))
+    return n - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
 
 
 def lm_decode_work(cfg, lengths: Sequence[int], dtype_bytes: int = 2,
                    cache_bytes: int = 2) -> Tuple[float, float]:
     """(bytes, operations) of one batched decode step of ``cfg``
     (``models.model.decode_step``) over rows attending to ``lengths``
-    cached positions each (the new token's included): every weight read
-    once at the compute dtype, except the embedding, of which only the B
-    gathered rows are read (unless tied: the unembedding reads it whole);
-    each row's valid KV-cache positions read and its new position written;
-    the logits written. An MoE layer counts all its experts' weights (the
-    reference's decode dispatch runs every expert over its capacity
-    buffer). Operations: two per weight per row, and the scores and
-    weighted values of each cached position."""
+    cached positions each (the new token's included).
+
+    Bytes: every weight of :func:`lm_decode_weights` read once at the
+    compute dtype, and the B gathered embedding rows; each row's valid
+    KV-cache positions read and its new position written; each row's
+    recurrent state read and written (:func:`lm_state_bytes_per_row`); the
+    decoder's cross-attention cache over ``enc_seq`` read; the logits
+    written. An MoE layer counts all its experts' weights (the reference's
+    decode dispatch runs every expert over its capacity buffer).
+
+    Operations: two per active weight per row (an MoE layer's
+    ``experts_per_token`` experts); for each attending layer (dense, moe,
+    mla, shared_attn, dec) the scores and weighted values of each cached
+    position, 4 H hd a position, and the decoder's the same over
+    ``enc_seq``; the linear recurrences' five a state element (decay
+    multiply-add, the key-value outer product, the read-out multiply-add)."""
     B = len(lengths)
     d, v = cfg.d_model, cfg.vocab_size
-    embed = v * d
-    weights = cfg.n_params() - (0 if cfg.tie_embeddings else embed)
-    per_pos = lm_cache_bytes_per_position(cfg, cache_bytes)
-    nbytes = (dtype_bytes * (weights + B * d) + per_pos * (sum(lengths) + B)
+    kinds = cfg.layer_kinds
+    weights = lm_decode_weights(cfg)
+    enc_kv = 2 * cfg.enc_seq * cfg.n_kv_heads * cfg.head_dim * kinds.count("dec")
+    nbytes = (dtype_bytes * (weights + B * d)
+              + lm_cache_bytes_per_position(cfg, cache_bytes) * (sum(lengths) + B)
+              + B * (2 * lm_state_bytes_per_row(cfg, cache_bytes) + cache_bytes * enc_kv)
               + dtype_bytes * B * v)
-    active = cfg.n_active_params() - (0 if cfg.tie_embeddings else embed)
-    attn = sum(4 * cfg.n_heads * cfg.head_dim for _ in cfg.layer_kinds)
-    ops = 2 * B * active + attn * sum(lengths)
+    idle_experts = (kinds.count("moe") * (cfg.n_experts - cfg.experts_per_token)
+                    * 3 * d * cfg.d_ff)
+    attending = sum(k in lm_model.ATTENTION_KINDS for k in kinds)
+    attn = 4 * cfg.n_heads * cfg.head_dim
+    d_in = cfg.ssm_expand * d
+    dk = d_in // max(cfg.n_heads, 1)
+    state = (kinds.count("mamba") * d_in * cfg.ssm_state
+             + kinds.count("mlstm") * cfg.n_heads * dk * (dk + 1))
+    ops = (2 * B * (weights - idle_experts) + attn * attending * sum(lengths)
+           + B * (attn * cfg.enc_seq * kinds.count("dec") + 5 * state))
     return float(nbytes), float(ops)
 
 

@@ -12,6 +12,14 @@ Greedy sampling, or temperature sampling on the reference's key chain
 (``split``, then ``categorical``, bit for bit ``jax.random``'s draws); the
 first token of a request is the prefill's argmax either way. A slot stops
 on its eos id, its ``max_new_tokens`` or at position ``max_len - 1``.
+
+Recurrent states (the SSM and hybrid families) stay float32 in the bf16
+cache. A request's one-row prefill cache is written into the batched one at
+its slot: axis 1 of the stacked trunk leaves, axis 0 of the unstacked tail
+leaves (the reference writes both at axis 1, which fails for zamba2's tail:
+ROADMAP Queue 3 item 6). The encoder-decoder family is refused: the
+reference's engine passes no encoder frames to the prefill (ROADMAP Queue 3
+item 9).
 """
 from __future__ import annotations
 
@@ -31,6 +39,17 @@ from repro_torch.models.params import tree_flatten, tree_map
 CACHE_DTYPE = torch.bfloat16
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config the engine cannot serve: one whose
+    decoder needs encoder frames, which requests do not carry."""
+    if cfg.n_enc_layers:
+        raise ValueError(
+            f"{cfg.name}: the slot engine serves decoder-only models; an "
+            f"encoder-decoder needs encoder frames a request does not carry, and "
+            f"the reference's Engine passes none (its prefill fails with "
+            f"'Cannot determine the shape of None'): ROADMAP Queue 3 item 9")
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -46,15 +65,19 @@ class Request:
 
 class Engine:
     """``params`` is a param tree (``models.model.init_params``); the engine
-    keeps one compute copy of it in ``cfg.dtype`` on ``device`` (norm scales
-    stay float32). ``prefill_ms`` and ``decode_ms`` hold the host wall time
-    of every prefill and decode tick, each ending in the sync that reads its
-    tokens."""
+    keeps one compute copy of it in ``cfg.dtype`` on ``device`` (the leaves
+    the reference reads in float32 stay float32). The cache is
+    ``cache_dtype``, bfloat16 as the reference's (a float32 cache serves a
+    float32 model without rounding its K/V, for checks that hold the batch
+    to one-row runs). ``prefill_ms`` and ``decode_ms`` hold the host wall
+    time of every prefill and decode tick, each ending in the sync that
+    reads its tokens."""
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0, seed: int = 0,
-                 device="cuda", record: bool = False):
-        M.check_supported(cfg)
+                 device="cuda", record: bool = False,
+                 cache_dtype: torch.dtype = CACHE_DTYPE):
+        check_servable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = M.compute_params(
@@ -64,7 +87,8 @@ class Engine:
         self.temperature = temperature
         self.record = record
         self.rng = _random.PRNGKey(seed)
-        self.cache = M.init_cache(cfg, n_slots, max_len, CACHE_DTYPE, self.device)
+        self.cache_dtype = cache_dtype
+        self.cache = M.init_cache(cfg, n_slots, max_len, cache_dtype, self.device)
         self.pos = np.zeros(n_slots, np.int64)  # per-slot next position
         self.active: List[Optional[Request]] = [None] * n_slots
         self.last_token = np.zeros(n_slots, np.int64)
@@ -88,15 +112,18 @@ class Engine:
             req = self.queue.pop(0)
             t0 = time.perf_counter()
             # prefill this slot: one-row prefill into a 1-row cache, then
-            # written into the batched cache at `slot` (axis 1 of every
-            # stacked trunk leaf is the batch axis)
+            # written into the batched cache at `slot`: the batch axis is
+            # axis 1 of a stacked trunk leaf, axis 0 of an unstacked tail leaf
             toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                    device=self.device)[None]
-            cache1 = M.init_cache(self.cfg, 1, self.max_len, CACHE_DTYPE, self.device)
+            cache1 = M.init_cache(self.cfg, 1, self.max_len, self.cache_dtype, self.device)
             out = M.prefill(self.params, self.cfg, toks, cache1, increment=self.record)
             logits, cache1 = out[0], out[1]
-            for (_, full), (_, one) in zip(tree_flatten(self.cache), tree_flatten(cache1)):
-                full[:, slot] = one[:, 0]
+            for (path, full), (_, one) in zip(tree_flatten(self.cache), tree_flatten(cache1)):
+                if path[0] == "trunk":
+                    full[:, slot] = one[:, 0]
+                else:
+                    full[slot] = one[0]
             self.active[slot] = req
             self.pos[slot] = len(req.prompt)
             self.last_token[slot] = int(torch.argmax(logits[0]))

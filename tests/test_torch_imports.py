@@ -24,6 +24,7 @@ from repro_torch.launch import loadgen as launch_loadgen
 from repro_torch.launch.mesh import make_mesh_2d
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import tnn_mnist as launch_flagship
+from repro_torch.launch import tnn_frontend_lm as launch_frontend
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model as lm_model
 from repro_torch.random import PRNGKey
@@ -47,7 +48,8 @@ def test_port_imports_no_jax():
                 "launch.mesh", "launch.collective_probe", "configs.base",
                 "configs.llama3_2_3b", "configs.mixtral_8x22b", "configs.minicpm3_4b",
                 "models.params", "models.layers", "models.moe", "models.model",
-                "serve.engine"):
+                "serve.engine", "models.ssm", "launch.tnn_frontend_lm",
+                "configs.xlstm_125m", "configs.zamba2_7b", "configs.whisper_tiny"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -126,6 +128,16 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
         LMEngine(lm, lm_params)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.lm_params_from_numpy(convert.lm_params_to_numpy(lm_params), lm)
+    # the SSM, hybrid and encoder-decoder families, and the TNN-frontend entry
+    for arch in ("xlstm-125m", "zamba2-7b", "whisper-tiny"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            lm_model.init_cache(smoke_config(arch), 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_serve.main(["--arch", "zamba2-7b", "--smoke", "--requests", "1"])
+    assert launch_frontend.parse_args([]).device == "cuda"
+    assert launch_frontend.parse_args([]).impl == "direct"
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_frontend.main([])
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

@@ -255,9 +255,3 @@ def test_sliding_window_ring_beyond_window():
     logits, _, inc = TM.decode_step(params, cfg, tok[:, n - 1], n - 1, cache, increment=True)
     np.testing.assert_allclose(_np(logits), _np(full[:, n - 1]), rtol=3e-3, atol=3e-3)
     np.testing.assert_allclose(_np(inc), _np(full_inc[:, n - 1]), rtol=0, atol=1e-5)
-
-
-@pytest.mark.parametrize("arch", ["whisper-tiny", "xlstm-125m", "zamba2-7b"])
-def test_deferred_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        TM.init_params(t_smoke(arch), t_random.PRNGKey(0), device="cpu")
