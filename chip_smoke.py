@@ -120,9 +120,29 @@ Phases, each of which fails the run on error:
             configs card against the CPU, with frames or embeds where the
             family takes them. No TNN kernel may launch on the LM serve
             paths.
-16. report  one JSON line with the serve, train, slice-6/7/8/9 and shape
-            numbers, one with every kernel's numbers, the card's nvidia-smi
-            line, then the result line.
+16. lm_train LM training (slice 11; no hand-written kernel: the reference's
+            LM training reaches no Pallas kernel) on llama3.2-3b: (1) at
+            full width cut to 2 layers, float32, AdamW, B = 1, S = 32, two
+            train steps on the card and on the CPU from the same state,
+            per-step loss and grad norm and the params after step 2 at the
+            CPU tests' float32 tolerances; (2) the train launcher (--steps 4
+            --batch 8 --seq 512) on the 2-layer cut in bf16, each step's
+            loss, ms and tokens/s, its final checkpoint (11.9 GB) restored
+            through lm_abstract_state bit-equal to the trainer's state, then
+            deleted; (3) the launcher at the smoke config (--steps 8) stopped
+            by SIGTERM after step 5 and run again, bit-equal to an
+            uninterrupted run (state and metrics.jsonl; if not, both again
+            under deterministic algorithms, naming the ops that have no
+            deterministic kernel); (4) the full-size step (28 layers,
+            3,606,752,256 parameters, bf16 compute, float32 masters, remat
+            "full", B x S = 4 x 512): median step ms, tokens/s, MFU against
+            the spec count, the bound of roofline.analysis.lm_train_work,
+            one traced step and the peak memory; then one step of the same
+            rows as two micro-steps, its ms and its own peak. No TNN kernel
+            may launch.
+17. report  one JSON line with the serve, train, slice-6 to slice-11 and
+            shape numbers, one with every kernel's numbers, the card's
+            nvidia-smi line, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -135,6 +155,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -146,7 +167,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.checkpoint.checkpointer import Checkpointer, restore_tnn  # noqa: E402
+from repro_torch.checkpoint.checkpointer import (  # noqa: E402
+    Checkpointer, lm_abstract_state, restore_tnn,
+)
 from repro_torch import random as t_random  # noqa: E402
 from repro_torch.configs.tnn_mnist import (  # noqa: E402
     deep_config, launcher_network_config, network_config,
@@ -164,6 +187,7 @@ from repro_torch.core.stdp import (  # noqa: E402
 )
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
+from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, padding, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
@@ -186,6 +210,8 @@ from repro_torch.models.params import (  # noqa: E402
 from repro_torch.serve.engine import Engine as LMEngine  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 from repro_torch.roofline import analysis as RL  # noqa: E402
+from repro_torch.train import optimizer as lm_opt  # noqa: E402
+from repro_torch.train import train_step as lm_ts  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
 from repro_torch.utils.tracing import (  # noqa: E402
     collectives_recorded, kernel_launch_count, read_counts, reset_counts,
@@ -1695,7 +1721,7 @@ def trace_cell_wave(tag: str, wave, repeats: int = 3, attempts: int = 3) -> dict
         print(f"    {tag}: {ms:.3f} ms a wave by CUDA events; the breakdown by "
               f"kernel is not measured (no trace recorded a device event)", flush=True)
         return {"wall_ms": ms, "device_busy_ms": None, "device_idle_share": None,
-                "top_device_ms": "not measured"}
+                "device_kernels": None, "top_device_ms": "not measured"}
     top = sorted(card, key=lambda e: -e.self_device_time_total)[:8]
     print(f"    traced ({repeats} waves): per wave wall {1e3 * wall:.3f} ms, device "
           f"busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / (1e6 * wall):.3f}",
@@ -1705,6 +1731,7 @@ def trace_cell_wave(tag: str, wave, repeats: int = 3, attempts: int = 3) -> dict
               f"x{e.count // repeats:<4d} {e.key[:70]}", flush=True)
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1 - busy_us / (1e6 * wall),
+            "device_kernels": sum(e.count for e in card) / repeats,
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 / repeats
                               for e in top}}
 
@@ -2616,6 +2643,346 @@ def lm_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training (port slice 11): train step, trainer, checkpoints, launcher
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_train")  # .gitignore lists build/
+LM_HOLD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=2)
+# The CPU tests' float32 tolerances (tests/test_torch_lm_train_step.py): the
+# step's loss, loss_total and grad_norm within 1e-5 relative; params after
+# the steps within 0.25 lr at most and within 1e-3 of the RMS distance they
+# moved in RMS (AdamW's normalised update turns a grad that differs in its
+# last bits near eps into a step a fraction of lr apart).
+LM_TRAIN_METRIC_REL = 1e-5
+LM_TRAIN_PARAM_LR = 0.25
+LM_TRAIN_PARAM_RMS = 1e-3
+LM_LAUNCH = ["--arch", "llama3.2-3b", "--steps", "4", "--batch", "8", "--seq", "512"]
+LM_RESUME = ["--arch", "llama3.2-3b", "--smoke", "--steps", "8"]
+LM_FULL_BATCH, LM_FULL_SEQ, LM_FULL_WARMUP, LM_FULL_TIMED = 4, 512, 2, 6
+
+
+def llama_layers(n: int, **kw):
+    """llama3.2-3b at full width cut to ``n`` of its 28 layers."""
+    return dataclasses.replace(get_lm_config("llama3.2-3b"), n_layers=n, layout_repeat=n, **kw)
+
+
+def _host_copy(tree):
+    return lm_tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def lm_train_hold(dev) -> dict:
+    """Part 1: llama3.2-3b at full width cut to 2 layers (989,346,816 spec
+    params), float32, AdamW, B = 1, S = 32, kv_chunk 128: two train steps on
+    the card and on the CPU from the same state (drawn from PRNGKey(0) on
+    the card and copied; the draw itself is held to the CPU's in the lm
+    phase), per-step metrics and the params after step 2 at the CPU tests'
+    float32 tolerances."""
+    cfg = llama_layers(2, dtype="float32")
+    opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+    step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=128))
+    stream = TokenStream(cfg.vocab_size, 1, 32, seed=0)
+    card = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), dev)
+    cpu = _host_copy(card)
+    start = _host_copy(card["params"])
+    rows, secs = [], {"card": 0.0, "cpu": 0.0}
+    for i in range(2):
+        batch = stream.batch_at(i)
+        got = {}
+        for where, state in (("card", card), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            got[where] = {k: float(v) for k, v in m.items()}
+            secs[where] += time.perf_counter() - t0
+        for k in ("loss", "loss_total", "grad_norm"):
+            a, b = got["card"][k], got["cpu"][k]
+            if not abs(a - b) <= LM_TRAIN_METRIC_REL * abs(b):
+                raise AssertionError(f"lm_train hold step {i + 1}: {k} card {a} cpu {b}")
+        rows.append(got)
+    lr = LM_HOLD_OPT["lr"]
+    worst_max, worst_rms, far, total, bad = 0.0, 0.0, 0, 0, []
+    for (path, a), (_, b), (_, s0) in zip(lm_tree_flatten(card["params"]),
+                                          lm_tree_flatten(cpu["params"]),
+                                          lm_tree_flatten(start)):
+        d = (a.cpu() - b).abs()
+        moved = float(((b - s0) ** 2).mean().sqrt())
+        dmax, drms = float(d.max()), float((d ** 2).mean().sqrt())
+        worst_max = max(worst_max, dmax / lr)
+        worst_rms = max(worst_rms, drms / max(moved, 1e-30))
+        far += int((d > 0.01 * lr).sum())
+        total += d.numel()
+        if dmax > LM_TRAIN_PARAM_LR * lr or drms > LM_TRAIN_PARAM_RMS * moved:
+            bad.append(f"{path}: max {dmax:.3g}, RMS {drms:.3g} of a {moved:.3g} move")
+    print(f"  llama3.2-3b 2 layers f32, 2 AdamW steps card vs CPU: losses "
+          f"{[r['card']['loss_total'] for r in rows]} / {[r['cpu']['loss_total'] for r in rows]}"
+          f", grad norms {[r['card']['grad_norm'] for r in rows]} / "
+          f"{[r['cpu']['grad_norm'] for r in rows]} (tolerance {LM_TRAIN_METRIC_REL} "
+          f"relative); params after step 2: max |diff| {worst_max:.3g} lr (tolerance "
+          f"{LM_TRAIN_PARAM_LR}), RMS diff {worst_rms:.3g} of the RMS move (tolerance "
+          f"{LM_TRAIN_PARAM_RMS}), {far} of {total:,} params more than 0.01 lr apart; "
+          f"card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s", flush=True)
+    if bad:
+        raise AssertionError(f"lm_train hold: params differ card vs CPU: {bad}")
+    return {"params": lm_model.param_count(cfg), "steps": rows,
+            "param_max_diff_in_lr": worst_max, "param_rms_diff_of_move": worst_rms,
+            "params_over_0.01_lr": far, "seconds": secs}
+
+
+def _same_state(a, b, what: str) -> None:
+    """Two states bit for bit, leaf by leaf (tensors or numpy arrays)."""
+    fa, fb = lm_tree_flatten(a), lm_tree_flatten(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        raise AssertionError(f"{what}: the states' leaves differ")
+    for (path, x), (_, y) in zip(fa, fb):
+        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x.reshape(-1).view(np.uint8), y.reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{what}: leaf {path} differs")
+
+
+def _metrics(ckpt_dir: str) -> list:
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def lm_train_launcher(dev) -> dict:
+    """Part 2: the launcher's run (``--steps 4 --batch 8 --seq 512``) on
+    llama3.2-3b cut to 2 layers, bf16: its only checkpoint is the final one
+    (``ckpt_every = max(4 // 3, 5)``), restored through ``lm_abstract_state``
+    equal to the trainer's final state bit for bit, then deleted."""
+    cfg = llama_layers(2)
+    d = os.path.join(LM_TRAIN_DIR, "launcher")
+    shutil.rmtree(d, ignore_errors=True)
+    args = launch_train.parse_args([*LM_LAUNCH, "--ckpt-dir", d])
+    prev = signal.getsignal(signal.SIGTERM)  # the trainer installs its own
+    t0 = time.perf_counter()
+    try:
+        out = launch_train.train_lm(args, cfg=cfg)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    wall = time.perf_counter() - t0
+    tr = out["trainer"]
+    lines = _metrics(d)
+    tokens = args.batch * args.seq
+    if out["final_step"] != 4 or [l["step"] for l in lines] != [1, 2, 3, 4]:
+        raise AssertionError(f"lm_train launcher: {out}, metrics steps {[l['step'] for l in lines]}")
+    if not all(math.isfinite(l["loss_total"]) for l in lines):
+        raise AssertionError("lm_train launcher: a loss is not finite")
+    ck = Checkpointer(d)
+    if ck.all_steps() != [4]:
+        raise AssertionError(f"lm_train launcher: checkpoints {ck.all_steps()}, expected [4]")
+    for l in lines:
+        print(f"  launcher step {l['step']}: loss {l['loss']:.5f}, grad_norm "
+              f"{l['grad_norm']:.4f}, {1e3 * l['dt_s']:.1f} ms, "
+              f"{tokens / l['dt_s']:.0f} tokens/s", flush=True)
+    t1 = time.perf_counter()
+    tree, extra = ck.restore(4, lm_abstract_state(cfg, launch_train.lm_opt_config(args, cfg)))
+    restore_s = time.perf_counter() - t1
+    if extra != {"data_step": 4}:
+        raise AssertionError(f"lm_train launcher: checkpoint extra {extra}")
+    _same_state(tr.state, tree, "lm_train launcher checkpoint vs the trainer's state")
+    nbytes = sum(a.nbytes for _, a in lm_tree_flatten(tree))
+    del tree, tr, out
+    shutil.rmtree(d)
+    print(f"  launcher: 4 steps of {tokens} tokens in {wall:.1f} s with the draw and the "
+          f"final checkpoint ({nbytes / 1e9:.2f} GB), restored in {restore_s:.1f} s bit-equal "
+          f"to the trainer's state; directory deleted", flush=True)
+    return {"steps": lines, "wall_s": wall, "ckpt_bytes": nbytes, "restore_s": restore_s}
+
+
+def lm_resume_pair(base: str) -> dict:
+    """Part 3's runs at the smoke config on the card: A stopped after step 5
+    by a SIGTERM (the trainer's handler sets the flag; the loop writes a
+    blocking checkpoint), then the same command again, which resumes; B
+    uninterrupted. Returns whether their states and metrics.jsonl losses
+    are equal bit for bit."""
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        da, db = os.path.join(base, "a"), os.path.join(base, "b")
+        for d in (da, db):
+            shutil.rmtree(d, ignore_errors=True)
+        args_a = launch_train.parse_args([*LM_RESUME, "--ckpt-dir", da])
+        tr = launch_train.lm_trainer(args_a)
+        orig = tr.step_fn
+
+        def stop_after_5(state, batch):
+            if tr.step == 4:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return orig(state, batch)
+
+        tr.step_fn = stop_after_5
+        first = tr.run()
+        if first["final_step"] != 5 or Checkpointer(da).latest_step() != 5:
+            raise AssertionError(f"lm_train resume: run A stopped at {first}")
+        a = launch_train.train_lm(args_a)
+        b = launch_train.train_lm(launch_train.parse_args([*LM_RESUME, "--ckpt-dir", db]))
+        la, lb = _metrics(da), _metrics(db)
+        same_losses = ([(l["step"], l["loss"], l["grad_norm"]) for l in la]
+                       == [(l["step"], l["loss"], l["grad_norm"]) for l in lb])
+        try:
+            _same_state(a["trainer"].state, b["trainer"].state, "lm_train resume")
+            same_state = True
+        except AssertionError:
+            same_state = False
+        return {"equal": same_state and same_losses, "same_state": same_state,
+                "same_losses": same_losses, "restarts": a["restarts"] + b["restarts"],
+                "losses": [l["loss"] for l in lb]}
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def lm_train_resume() -> dict:
+    """Part 3: the interrupted and the uninterrupted run equal bit for bit.
+    If they are not, both run again in a subprocess under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: its warnings name the ops that have
+    no deterministic kernel, and there the runs must be equal."""
+    base = os.path.join(LM_TRAIN_DIR, "resume")
+    out = lm_resume_pair(base)
+    print(f"  resume (smoke llama3.2-3b, --steps 8, SIGTERM after step 5, run again) vs "
+          f"uninterrupted: state equal {out['same_state']}, metrics.jsonl losses equal "
+          f"{out['same_losses']}", flush=True)
+    if not out["equal"]:
+        code = ("import json, sys, warnings\n"
+                f"sys.path.insert(0, {ROOT!r})\n"
+                "import torch\n"
+                "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+                "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                "import chip_smoke\n"
+                "with warnings.catch_warnings(record=True) as w:\n"
+                "    warnings.simplefilter('always')\n"
+                f"    r = chip_smoke.lm_resume_pair({os.path.join(base, 'det')!r})\n"
+                "r['nondeterministic'] = sorted({str(x.message)[:160] for x in w\n"
+                "                                if 'determinis' in str(x.message)})\n"
+                "print(json.dumps(r))\n")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              env=env, timeout=300, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"lm_train resume: the deterministic rerun failed: "
+                                 f"{proc.stderr[-2000:]}")
+        det = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"  deterministic rerun: equal {det['equal']}; ops without a deterministic "
+              f"kernel: {det['nondeterministic'] or 'none named'}", flush=True)
+        out["deterministic_rerun"] = det
+        if not det["equal"]:
+            raise AssertionError("lm_train resume: resumed and uninterrupted runs differ, "
+                                 "also under deterministic algorithms")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def lm_train_full(dev, smi: str) -> dict:
+    """Part 4: llama3.2-3b at full size (28 layers, 3,606,752,256 spec
+    params), bf16 compute, float32 masters, AdamW, remat "full", B x S =
+    4 x 512: ``init_state`` and ``make_train_step`` on the card, 2 warm-up
+    and 6 timed steps (host clock, each step ends in its loss's sync), no
+    checkpoint; MFU against the spec count, the bound of ``lm_train_work``,
+    one traced step (busy, idle share, kernels, top ops) and the peak; then
+    one step of the same rows as two micro-steps, its time and its peak."""
+    cfg = get_lm_config("llama3.2-3b")
+    n_steps = LM_FULL_WARMUP + LM_FULL_TIMED
+    opt_cfg = lm_opt.OptConfig(lr=1e-3, warmup_steps=min(20, n_steps // 5 + 1),
+                               total_steps=n_steps + 1)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=128))
+    stream = TokenStream(cfg.vocab_size, LM_FULL_BATCH, LM_FULL_SEQ, seed=0)
+    times, losses = [], []
+    for i in range(n_steps):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = step(state, batch)
+        losses.append(float(m["loss_total"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm_train full size: losses {losses}")
+    step_s = float(np.median(times[LM_FULL_WARMUP:]))
+    tokens = LM_FULL_BATCH * LM_FULL_SEQ
+    work = RL.lm_train_work(cfg, opt_cfg, LM_FULL_BATCH, LM_FULL_SEQ)
+    mfu = RL.lm_mfu(work["model_flops"], step_s)
+    # the step's two halves, each ending in a sync: the loss and its grads
+    # (forward, recompute, backward), then the optimizer pass; the
+    # optimizer traced alone, then the whole step
+    batch = stream.batch_at(n_steps)
+    loss_fn = lm_ts.make_loss_fn(cfg, lm_ts.TrainConfig(kv_chunk=128))
+    t1 = time.perf_counter()
+    loss, _, grads = lm_ts.value_and_grad(loss_fn, state["params"],
+                                          lm_ts.device_batch(batch, dev))
+    float(loss)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lm_opt.opt_update(grads, state["opt"], state["params"], opt_cfg)
+    torch.cuda.synchronize()
+    split = {"grads_ms": 1e3 * (t2 - t1), "optimizer_ms": 1e3 * (time.perf_counter() - t2)}
+    trace_opt = trace_cell_wave("llama3.2-3b optimizer pass", lambda: lm_opt.opt_update(
+        grads, state["opt"], state["params"], opt_cfg), repeats=1)
+    del grads
+    trace = trace_cell_wave("llama3.2-3b train step", lambda: step(state, batch), repeats=1)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # the same batch as two micro-steps: one step, its peak on its own
+    torch.cuda.reset_peak_memory_stats(dev)
+    step2 = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(micro_steps=2, kv_chunk=128))
+    t1 = time.perf_counter()
+    _, m = step2(state, stream.batch_at(n_steps + 1))
+    micro = {"loss_total": float(m["loss_total"])}
+    torch.cuda.synchronize()
+    micro["step_ms"] = 1e3 * (time.perf_counter() - t1)
+    micro["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    if not math.isfinite(micro["loss_total"]):
+        raise AssertionError(f"lm_train full size, micro-steps 2: loss {micro['loss_total']}")
+    print(f"  llama3.2-3b full size ({lm_model.param_count(cfg):,} spec params) train step, "
+          f"B x S = {LM_FULL_BATCH} x {LM_FULL_SEQ}, bf16, AdamW, remat full ({smi}): median "
+          f"{1e3 * step_s:.1f} ms of {LM_FULL_TIMED} (all: "
+          f"{[round(1e3 * t, 1) for t in times]}), {tokens / step_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f} (6 x {work['model_flops'] / 6 / tokens:,.0f} params x tokens, against "
+          f"989 TFLOP/s); bound {work['bound_ms']:.1f} ms (products {work['products_ms']:.1f} "
+          f"ms at the bf16 peak, optimizer pass {work['optimizer_ms']:.1f} ms: "
+          f"{work['bytes'] / 1e9:.1f} GB at 3.35 TB/s); losses {[round(x, 4) for x in losses]}; "
+          f"draw {draw_s:.1f} s; peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); one step "
+          f"split: grads {split['grads_ms']:.1f} ms, optimizer {split['optimizer_ms']:.1f} ms; "
+          f"traced: {trace['device_kernels']} kernels a step, the optimizer alone "
+          f"{trace_opt['device_busy_ms']} ms busy of {trace_opt['wall_ms']:.1f}; micro-steps 2 "
+          f"(2 x 2 rows): one step {micro['step_ms']:.1f} ms, peak "
+          f"{micro['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    del state, step, step2
+    return {"params": lm_model.param_count(cfg), "batch": LM_FULL_BATCH, "seq": LM_FULL_SEQ,
+            "step_ms": 1e3 * step_s, "step_ms_all": [1e3 * t for t in times],
+            "tokens_per_s": tokens / step_s, "mfu": mfu, "bound": work,
+            "losses": losses, "draw_s": draw_s, "peak_bytes": peak, "split": split,
+            "trace": trace, "trace_optimizer": trace_opt, "micro_steps_2": micro}
+
+
+def lm_train_phase(dev, smi: str) -> dict:
+    """LM training through the port's train step, trainer, checkpoints and
+    launcher; no TNN kernel may launch on it."""
+    torch.empty(1, device=dev)
+    reset_counts()
+    out, secs = {}, {}
+    for name, fn in (("hold_2layers_f32", lambda: lm_train_hold(dev)),
+                     ("launcher_2layers", lambda: lm_train_launcher(dev)),
+                     ("resume_smoke", lm_train_resume),
+                     ("full_size", lambda: lm_train_full(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _free()
+        secs[name] = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"lm_train: the LM path launched TNN kernels {counts}")
+    out["seconds"] = secs
+    print(f"  lm_train part seconds: { {k: round(v, 1) for k, v in secs.items()} }",
+          flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("device")
@@ -2777,7 +3144,13 @@ def main() -> int:
           "prefix, the TNN-frontend entry point, the smoke configs against the CPU)")
     lm = lm_phase(dev, smi_line)
     seconds["lm"] = time.perf_counter() - t0
-    print(f"  slice-6 to slice-9 phase seconds: {seconds}", flush=True)
+
+    t0 = time.perf_counter()
+    phase("lm_train: LM training (llama3.2-3b: 2 layers card vs CPU, the launcher and its "
+          "checkpoint, resume on the card, the full-size step)")
+    lm_train = lm_train_phase(dev, smi_line)
+    seconds["lm_train"] = time.perf_counter() - t0
+    print(f"  slice-6 to slice-11 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -2851,6 +3224,7 @@ def main() -> int:
         "cells": cells,
         "mesh": {k: v for k, v in mesh.items() if k not in ("window_timing",)},
         "lm": lm,
+        "lm_train": lm_train,
         "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,

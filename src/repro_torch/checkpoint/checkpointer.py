@@ -13,7 +13,9 @@ visible step directory is complete at every instant.
 The TNN training checkpoint is ``{"params": {"layer_NN": int8 (C, p, q)},
 "rng": uint32 (2,), "wave": int32 (), "vote_table": float32 (S, q,
 n_classes)}``; :func:`restore_tnn` refuses a checkpoint written for another
-network (``tnn_config_fingerprint``) before it loads any array.
+network (``tnn_config_fingerprint``) before it loads any array. The LM
+training checkpoint is the reference ``Trainer``'s ``{"params", "opt",
+"step"}`` (:func:`lm_abstract_state`), with the data cursor in ``extra``.
 
 Checkpoints carry no mesh: on a (data, model) mesh :func:`save_tnn` gathers
 the logical weights (every rank calls it) and rank 0 writes them, and
@@ -54,6 +56,37 @@ def tnn_abstract_state(cfg) -> Dict[str, Any]:
             "wave": LeafSpec((), np.dtype(np.int32)),
             "vote_table": LeafSpec((last.n_cols, last.column.q, cfg.n_classes),
                                    np.dtype(np.float32))}
+
+
+def lm_abstract_state(cfg, opt_cfg) -> Dict[str, Any]:
+    """The restore target of an LM training checkpoint, the reference
+    ``Trainer``'s state: float32 ``params`` (the spec tree of ``cfg``), the
+    optimizer state of ``opt_cfg`` (AdamW ``m``/``v``, or Adafactor's
+    factored ``vr``/``vc``, ``vc`` (1,) for a 1-D leaf; ``residual`` under
+    gradient compression) with an int32 ``count``, and the int32 ``step``.
+    Its checkpoints carry ``extra={"data_step": N}``."""
+    from repro_torch.models.model import build_specs
+    from repro_torch.models.params import is_spec, tree_map
+
+    def f32(shape):
+        return LeafSpec(tuple(shape), np.dtype(np.float32))
+
+    specs = build_specs(cfg)
+    params = tree_map(lambda s: f32(s.shape), specs, is_spec)
+    count = LeafSpec((), np.dtype(np.int32))
+    if opt_cfg.name == "adamw":
+        opt: Dict[str, Any] = {"m": params, "v": params, "count": count}
+    elif opt_cfg.name == "adafactor":
+        opt = {"vr": tree_map(lambda s: f32(s.shape[:-1] if len(s.shape) >= 2 else s.shape),
+                              specs, is_spec),
+               "vc": tree_map(lambda s: f32(s.shape[:-2] + s.shape[-1:]
+                                            if len(s.shape) >= 2 else (1,)), specs, is_spec),
+               "count": count}
+    else:
+        raise ValueError(opt_cfg.name)
+    if opt_cfg.compress_grads:
+        opt["residual"] = params
+    return {"params": params, "opt": opt, "step": count}
 
 
 def tnn_config_fingerprint(cfg) -> str:

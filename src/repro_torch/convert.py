@@ -3,8 +3,9 @@ per-layer weights (numpy arrays, a list of them, or its ``{"layer_NN": ...}``
 tree) to the port's int8 tensors, and back; its training state (params
 tree, key data, wave counter) to the port's state, and back; a state
 into a mesh rank's local, site-padded shard, and back through the gather;
-and an LM's param tree (``lm_params_from_numpy`` / ``lm_params_to_numpy``),
-name for name."""
+an LM's param tree (``lm_params_from_numpy`` / ``lm_params_to_numpy``),
+name for name; and an LM's training state, params, optimizer state and step
+(``lm_state_from_numpy`` / ``lm_state_to_numpy``)."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Union
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as _random
+from repro_torch.checkpoint.checkpointer import LeafSpec, lm_abstract_state
 from repro_torch.core.network import (
     NetworkConfig, local_tree, logical_params, params_to_tree,
 )
@@ -148,3 +150,35 @@ def lm_params_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
 def lm_params_to_numpy(params: Dict) -> Dict:
     """The inverse: the same tree as float32 numpy arrays on the host."""
     return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), params)
+
+
+def lm_state_from_numpy(tree: Dict, cfg, opt_cfg, device="cuda") -> Dict:
+    """An LM training state as numpy (the reference's ``init_state`` or
+    ``Trainer`` state after ``jax.tree.map(np.asarray, ...)``, or a restored
+    checkpoint: ``{"params", "opt", "step"}``) -> the port's state: float32
+    params and optimizer moments on ``device``, the int32 ``count`` and
+    ``step`` on the host. The tree must hold exactly the leaves of
+    ``lm_abstract_state(cfg, opt_cfg)``, at their shapes and dtypes."""
+    dev = resolve_device(device)
+    abstract = lm_abstract_state(cfg, opt_cfg)
+    is_leaf = lambda x: isinstance(x, LeafSpec)  # noqa: E731
+    want = dict(tree_flatten(abstract, is_leaf))
+    got = dict(tree_flatten(tree, lambda x: isinstance(x, np.ndarray)))
+    if set(got) != set(want):
+        raise KeyError(f"leaves differ from {cfg.name}'s {opt_cfg.name} state: missing "
+                       f"{sorted(set(want) - set(got))}, extra {sorted(set(got) - set(want))}")
+    out = {}
+    for path, spec in want.items():
+        a = np.asarray(got[path])
+        if tuple(a.shape) != tuple(spec.shape) or a.dtype != spec.dtype:
+            raise ValueError(f"{'/'.join(map(str, path))}: {a.dtype}{list(a.shape)} != "
+                             f"{spec.dtype}{list(spec.shape)}")
+        t = torch.from_numpy(a.copy())
+        out[path] = t if a.dtype == np.int32 else t.to(dev)
+    return tree_map_with_path(lambda path, _: out[path], abstract, is_leaf)
+
+
+def lm_state_to_numpy(state: Dict) -> Dict:
+    """The inverse: the same tree as numpy on the host (float32 leaves,
+    int32 ``count`` and ``step``)."""
+    return tree_map(lambda t: t.detach().to("cpu").numpy().copy(), state)

@@ -18,22 +18,47 @@ gloo`` when ranks share a card, and on the CPU):
 From the same flags the run equals ``python -m repro.launch.train --arch
 tnn-mnist`` of the JAX package bit for bit: weights, key, wave, vote table
 and accuracy, and the two packages restore each other's checkpoints.
+
+``--arch <LM>`` (any of the ten registry archs) trains the LM through the
+fault-tolerant ``train.trainer.Trainer`` on the synthetic token stream, with
+the reference's flags and defaults: params from ``PRNGKey(0)``, AdamW (or
+Adafactor over 50B parameters by ``n_params()``), the warmup-cosine schedule
+over ``--steps``, ``kv_chunk`` 128, a checkpoint every ``max(steps // 3,
+5)`` steps and at the end, ``metrics.jsonl`` in the checkpoint directory
+(default ``$TMPDIR/repro_launch_ckpt``); running the same command again
+resumes. ``--smoke`` trains the family's smoke config:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+        --smoke --steps 6 --batch 2 --seq 16 --device cpu
+
+LM sharding (``--mesh``, ``--production-mesh``) is ROADMAP Queue 1 item
+6(e).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import tempfile
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch import random as t_random
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.tnn_mnist import (
     DEFAULT_CKPT_DIR, launcher_network_config, train_config,
 )
+from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
+from repro_torch.models.model import param_count
+from repro_torch.train import optimizer as OPT
+from repro_torch.train import train_step as TS
 from repro_torch.train.tnn_trainer import TNNTrainer
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+LM_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_launch_ckpt")
 
 
 def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
@@ -69,14 +94,74 @@ def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
     return dict(summary, trainer=trainer)
 
 
+def lm_opt_config(args: argparse.Namespace, cfg) -> OPT.OptConfig:
+    """The reference launcher's optimizer for the flags: AdamW, or Adafactor
+    over 50B parameters by the reference's ``n_params()``; warmup over the
+    first ``min(20, steps // 5 + 1)`` steps, cosine decay to ``--steps``."""
+    return OPT.OptConfig(
+        name=OPT.default_opt_for(cfg.n_params()), lr=args.lr,
+        warmup_steps=min(20, args.steps // 5 + 1), total_steps=args.steps,
+        compress_grads=args.compress_grads)
+
+
+def lm_trainer(args: argparse.Namespace, cfg=None) -> Trainer:
+    """The LM run of the flags, built and ready to ``run()``: the model
+    ``cfg`` (default: the arch's config, or its smoke config with
+    ``--smoke``), its state drawn from ``PRNGKey(0)`` on the device, the
+    train step, the token stream and the trainer, with the SIGTERM handler
+    installed."""
+    device = resolve_device(args.device)
+    if cfg is None:
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    ckpt_dir = args.ckpt_dir or LM_CKPT_DIR
+    opt_cfg = lm_opt_config(args, cfg)
+    tc = TS.TrainConfig(micro_steps=args.micro_steps, kv_chunk=128)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"training {cfg.name} ({param_count(cfg):,} parameters, {cfg.dtype}, "
+          f"{opt_cfg.name}, remat {cfg.remat}) on {where}: {args.steps} steps x "
+          f"batch {args.batch} x seq {args.seq}", flush=True)
+    state = TS.init_state(cfg, opt_cfg, t_random.PRNGKey(0), device)
+    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=0)
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=max(args.steps // 3, 5),
+                         ckpt_dir=ckpt_dir, log_every=5,
+                         metrics_path=os.path.join(ckpt_dir, "metrics.jsonl"))
+    trainer = Trainer(TS.make_train_step(cfg, opt_cfg, tc), state, stream, tcfg)
+    trainer.install_preemption_handler()
+    return trainer
+
+
+def train_lm(args: argparse.Namespace, cfg=None) -> Dict[str, Any]:
+    """Run :func:`lm_trainer`; returns its summary (the trainer is
+    ``summary["trainer"]``)."""
+    trainer = lm_trainer(args, cfg)
+    summary = trainer.run()
+    print(summary, flush=True)
+    return dict(summary, trainer=trainer)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="tnn-mnist", choices=("tnn-mnist",),
-                    help="the port trains the TNN prototype only")
+    ap.add_argument("--arch", default="tnn-mnist", choices=("tnn-mnist", *ARCHS),
+                    help="the TNN prototype, or an LM of the registry")
     ap.add_argument("--smoke", action="store_true",
-                    help="16 sites and a small stream (seconds on a CPU)")
+                    help="tnn-mnist: 16 sites and a small stream; an LM: its "
+                         "smoke config (seconds on a CPU)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help=f"checkpoint directory (default {DEFAULT_CKPT_DIR})")
+                    help=f"checkpoint directory (default {DEFAULT_CKPT_DIR} for "
+                         f"tnn-mnist, {LM_CKPT_DIR} for an LM)")
+    # LM options (the reference's)
+    ap.add_argument("--production-mesh", choices=["single", "multi"], default=None,
+                    help="an LM's production mesh (not in the port: ROADMAP "
+                         "Queue 1 item 6(e))")
+    ap.add_argument("--steps", type=int, default=50, help="LM train steps")
+    ap.add_argument("--batch", type=int, default=8, help="LM rows a step")
+    ap.add_argument("--seq", type=int, default=128, help="LM tokens a row")
+    ap.add_argument("--lr", type=float, default=1e-3, help="LM peak learning rate")
+    ap.add_argument("--micro-steps", type=int, default=1,
+                    help="LM gradient-accumulation microbatches a step")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="LM int8 gradient compression with error feedback")
+    # tnn-mnist options
     ap.add_argument("--epochs", type=int, default=1)
     ap.add_argument("--sites", type=int, default=625,
                     help="prototype sites (perfect square; --smoke -> 16)")
@@ -102,16 +187,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="(data, model) process mesh, e.g. --mesh 2x2 under "
                          "torchrun --nproc-per-node 4: batch rows shard over "
-                         "data, sites over model")
+                         "data, sites over model (tnn-mnist)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="the mesh's backend (default nccl on cuda, gloo on "
                          "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.arch != "tnn-mnist" and (args.mesh or args.production_mesh):
+        ap.error("--mesh and --production-mesh train tnn-mnist only; LM sharding is "
+                 "ROADMAP Queue 1 item 6(e)")
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    return train_tnn(parse_args(argv))
+    args = parse_args(argv)
+    if args.arch == "tnn-mnist":
+        return train_tnn(args)
+    return train_lm(args)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ forwards write them in place. Recurrent states are float32 whatever the
 cache dtype (``models.ssm``).
 
 Modes:
-    train   — full-sequence causal forward, logits for CE loss
+    train   — full-sequence causal forward, logits for CE loss; under
+              autograd each trunk unit and encoder layer runs under
+              activation checkpointing by ``cfg.remat``, where the
+              reference wraps them in ``jax.checkpoint``
     prefill — full-sequence forward that also fills the caches
     decode  — one token against pre-allocated caches (serve_step)
 
@@ -32,10 +35,14 @@ see the trunk, so parity checks compare this too).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -372,6 +379,46 @@ def _layer(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
 
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` per-layer trees of a stacked param tree, each leaf unbound
+    along its leading layers axis (views). Under autograd the layers' grads
+    come back through one stack a leaf, where indexing layer by layer would
+    add a full-size zero-padded grad a layer."""
+    flat = {path: leaf.unbind(0) for path, leaf in tree_flatten(tree)}
+    return [tree_map_with_path(lambda path, _: flat[path][r], tree) for r in range(n)]
+
+
+_aten = torch.ops.aten
+
+
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``): keep the outputs of products
+    without batch dimensions (``torch.matmul`` of activations by a weight is
+    an ``mm``; an ``einsum`` without batch dimensions a ``bmm`` of batch 1),
+    recompute everything else."""
+    plain = op in (_aten.mm.default, _aten.addmm.default) or (
+        op is _aten.bmm.default and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if plain else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing by ``cfg.remat``, as the
+    reference wraps each trunk unit and the encoder's layer body in
+    ``jax.checkpoint``: ``"none"`` keeps every activation, ``"dots"`` keeps
+    the plain products' outputs and recomputes the rest in the backward
+    pass, any other value (``"full"``) keeps only the unit's inputs. Only
+    when autograd records (a forward without grad saves nothing to
+    recompute). Remat changes memory, never values."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_plain_products)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
 def _run_block(mode, kind, x, p, cache, cfg, positions, pos, shared, enc_out, kv_chunk):
     if mode == "train":
         return _run_block_train(kind, x, p, cfg, positions, shared, enc_out, kv_chunk)
@@ -383,16 +430,23 @@ def _run_block(mode, kind, x, p, cache, cfg, positions, pos, shared, enc_out, kv
 
 def _run_trunk(x, params, cfg: ModelConfig, mode: str, positions=None, cache=None,
                pos=None, enc_out=None, kv_chunk: int = 512):
-    """Run the trunk's ``layout_repeat`` units in order, then the tail
-    blocks; caches are written in place. Returns x."""
+    """Run the trunk's ``layout_repeat`` units in order (in ``"train"``
+    mode each unit under :func:`_remat`), then the tail blocks, outside
+    remat as in the reference; caches are written in place. Returns x."""
     shared = params.get("shared")
-    for r in range(cfg.layout_repeat):
-        bp = _layer(params["trunk"], r)
+
+    def unit(x, bp, r):
         bc = _layer(cache["trunk"], r) if cache is not None else None
         for i, kind in enumerate(cfg.layout_unit):
             key = f"{i}_{kind}"
             x = _run_block(mode, kind, x, bp.get(key, {}), bc[key] if bc else None, cfg,
                            positions, pos, shared, enc_out, kv_chunk)
+        return x
+
+    if mode == "train":
+        unit = _remat(unit, cfg)
+    for r, bp in enumerate(_unstack(params["trunk"], cfg.layout_repeat)):
+        x = unit(x, bp, r)
     for i, kind in enumerate(cfg.layout_tail):
         key = f"{i}_{kind}"
         x = _run_block(mode, kind, x, params["tail"][key],
@@ -404,18 +458,23 @@ def _run_trunk(x, params, cfg: ModelConfig, mode: str, positions=None, cache=Non
 def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, enc_seq, d) stub frontend embeddings -> the encoder
     output: bidirectional self-attention with RoPE (the reference's default
-    chunk of 512), then the encoder's final norm."""
+    chunk of 512), then the encoder's final norm; each layer's body under
+    :func:`_remat`."""
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], device=frames.device)
-    x = frames
-    for r in range(cfg.n_enc_layers):
-        bp = _layer(enc["trunk"], r)["0_enc"]
+
+    def body(x, bp):
         h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = L.gqa_qkv(h, bp["attn"], cfg, positions)
         attn = L.flash_attention(q, k, v, causal=False, cross=True)
         x = x + L.gqa_out(attn, bp["attn"])
         h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(h, bp["mlp"], cfg.act)
+        return x + L.mlp(h, bp["mlp"], cfg.act)
+
+    body = _remat(body, cfg)
+    x = frames
+    for bp in _unstack(enc["trunk"], cfg.n_enc_layers):
+        x = body(x, bp["0_enc"])
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 

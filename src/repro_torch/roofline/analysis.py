@@ -28,11 +28,13 @@ profile's inter-card rate.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.models import model as lm_model
+from repro_torch.models.params import is_spec, tree_flatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -477,3 +479,67 @@ def lm_decode_bound(cfg, lengths: Sequence[int], dtype_bytes: int = 2,
     :func:`lm_decode_work` on an H100 SXM."""
     nbytes, ops = lm_decode_work(cfg, lengths, dtype_bytes, cache_bytes)
     return bound(nbytes, 1e3 * ops / BF16_OPS_PER_S)
+
+
+# ---------------------------------------------------------------------------
+# LM training: one step of forward, backward and optimizer
+# ---------------------------------------------------------------------------
+
+
+def lm_train_work(cfg, opt_cfg, batch: int, seq: int) -> Dict[str, float]:
+    """The least work of one train step (``train.train_step``) of a decoder
+    whose layers are all "dense" or "moe" (GQA attention; no encoder, no
+    frontend), as two phases, each at its own limit, and the bound their
+    sum; the remat mode is the config's (``cfg.remat``), the optimizer and
+    its compression the step's ``opt_cfg``:
+
+    * products, at the dense bf16 tensor-core rate: (6 + 2 [remat full])
+      operations a trunk weight a token (forward 2, backward 4, the
+      recomputed forward 2), less the experts an MoE token does not visit;
+      the head's 6 d V a token (its logits are never recomputed); the
+      causal attention's 2 B H hd S^2 a layer forward (4 H hd per
+      query-key pair, half of them masked; 4 B H hd S W under a sliding
+      window W < S) times (3 + [remat full]);
+    * the optimizer pass, at the HBM rate: float32 params and grads read,
+      params written; AdamW's two moments (Adafactor's factored ones) read
+      and written, the compression residual read and written, and the
+      compute-dtype copy of every weight written for the next step.
+
+    Counts the spec tree (``models.model.param_count``, not ``n_params()``:
+    ROADMAP Queue 3 item 10). ``model_flops`` is 6 operations a weight a
+    token, the embedding table left out and no recompute: the numerator of
+    MFU (:func:`lm_mfu`)."""
+    if not set(cfg.layer_kinds) <= {"dense", "moe"} or cfg.frontend or cfg.enc_seq:
+        raise ValueError(f"lm_train_work counts dense and MoE decoders, not {cfg.name}")
+    if opt_cfg.name not in ("adamw", "adafactor"):
+        raise ValueError(opt_cfg.name)
+    r = 1 if cfg.remat == "full" else 0
+    tokens = batch * seq
+    d, V = cfg.d_model, cfg.vocab_size
+    idle = (cfg.layer_kinds.count("moe") * (cfg.n_experts - cfg.experts_per_token)
+            * 3 * d * cfg.d_ff)
+    kv = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    attn_fwd = 2 * batch * cfg.n_heads * cfg.head_dim * seq * kv * (2 if kv < seq else 1)
+    ops = ((6 + 2 * r) * (lm_model.param_count(cfg, "trunk") - idle) * tokens
+           + 6 * d * V * tokens + (3 + r) * attn_fwd * len(cfg.layer_kinds))
+    n = lm_model.param_count(cfg)
+    if opt_cfg.name == "adamw":
+        moments = 2 * n
+    else:
+        moments = sum(math.prod(s.shape[:-1]) + math.prod(s.shape[:-2] + s.shape[-1:])
+                      if len(s.shape) >= 2 else s.shape[0] + 1
+                      for _, s in tree_flatten(lm_model.build_specs(cfg), is_spec))
+    cast = 0 if lm_model.as_dtype(cfg.dtype) == torch.float32 else 2 * n
+    nbytes = 4 * (3 * n + 2 * moments + (2 * n if opt_cfg.compress_grads else 0)) + cast
+    products_ms = 1e3 * ops / BF16_OPS_PER_S
+    optimizer_ms = 1e3 * nbytes / H100_SXM.hbm_bw
+    embed = lm_model.param_count(cfg, "embed")
+    return {"ops": float(ops), "bytes": float(nbytes), "products_ms": products_ms,
+            "optimizer_ms": optimizer_ms, "bound_ms": products_ms + optimizer_ms,
+            "model_flops": float(6 * (n - embed) * tokens)}
+
+
+def lm_mfu(model_flops: float, step_s: float) -> float:
+    """Model FLOP utilisation: ``model_flops`` a step over the step's
+    seconds, against the dense bf16 peak."""
+    return model_flops / step_s / BF16_OPS_PER_S

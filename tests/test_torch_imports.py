@@ -29,6 +29,8 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import model as lm_model
 from repro_torch.random import PRNGKey
 from repro_torch.serve.engine import Engine as LMEngine
+from repro_torch.train import optimizer as lm_optimizer
+from repro_torch.train import train_step as lm_train_step
 from repro_torch.serve.tnn_engine import TNNEngine
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -49,7 +51,8 @@ def test_port_imports_no_jax():
                 "configs.llama3_2_3b", "configs.mixtral_8x22b", "configs.minicpm3_4b",
                 "models.params", "models.layers", "models.moe", "models.model",
                 "serve.engine", "models.ssm", "launch.tnn_frontend_lm",
-                "configs.xlstm_125m", "configs.zamba2_7b", "configs.whisper_tiny"):
+                "configs.xlstm_125m", "configs.zamba2_7b", "configs.whisper_tiny",
+                "data.tokens", "train.optimizer", "train.train_step", "train.trainer"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -134,6 +137,12 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
             lm_model.init_cache(smoke_config(arch), 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         launch_serve.main(["--arch", "zamba2-7b", "--smoke", "--requests", "1"])
+    # LM training (its launcher's --arch default stays tnn-mnist)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path / "lm")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_train_step.init_state(lm, lm_optimizer.OptConfig(), key)
     assert launch_frontend.parse_args([]).device == "cuda"
     assert launch_frontend.parse_args([]).impl == "direct"
     with pytest.raises(RuntimeError, match="cuda"):
