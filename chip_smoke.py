@@ -140,7 +140,26 @@ Phases, each of which fails the run on error:
             one traced step and the peak memory; then one step of the same
             rows as two micro-steps, its ms and its own peak. No TNN kernel
             may launch.
-17. report  one JSON line with the serve, train, slice-6 to slice-11 and
+17. lm_mesh LM sharding (slice 12; no hand-written kernel) on llama3.2-3b at
+            full width cut to 2 layers (989,346,816 parameters), float32,
+            AdamW: one process on the card takes two steps at B x S = 4 x
+            128 (timed, one more traced) and serves its end params (a
+            64-token prefill into a float32 cache and 4 greedy decode
+            ticks); then 4 ranks sharing the card over gloo, under 2x2 and
+            1x4, draw the state sharded by the reference's param rules
+            (DTensors), take the same two steps (per-step loss and grad
+            norm within 1e-5 relative, params after step 2 at lm_train's
+            tolerances, step ms, peak, rank 0's traced step and its idle
+            share), serve the one-process end params sharded (logits within
+            1e-4 of the largest, greedy tokens equal outside near ties);
+            under 2x2 the sharded checkpoint (each rank's sharded restore
+            equal to its blocks; restored in one process (rank 0, no
+            shardings) equal to the gathered state, leaf by leaf; then
+            deleted), the collective
+            probe's LM table of the train step, and pipeline_apply over the
+            4 ranks as stages against its sequential form. No TNN kernel may
+            launch.
+18. report  one JSON line with the serve, train, slice-6 to slice-12 and
             shape numbers, one with every kernel's numbers, the card's
             nvidia-smi line, then the result line.
 
@@ -168,7 +187,7 @@ import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint.checkpointer import (  # noqa: E402
-    Checkpointer, lm_abstract_state, restore_tnn,
+    Checkpointer, LeafSpec, lm_abstract_state, restore_tnn,
 )
 from repro_torch import random as t_random  # noqa: E402
 from repro_torch.configs.tnn_mnist import (  # noqa: E402
@@ -210,6 +229,7 @@ from repro_torch.models.params import (  # noqa: E402
 from repro_torch.serve.engine import Engine as LMEngine  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 from repro_torch.roofline import analysis as RL  # noqa: E402
+from repro_torch.sharding import partition as PT  # noqa: E402
 from repro_torch.train import optimizer as lm_opt  # noqa: E402
 from repro_torch.train import train_step as lm_ts  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
@@ -2983,6 +3003,340 @@ def lm_train_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: LM sharding, the DTensor train and serve steps on 4 ranks
+# ---------------------------------------------------------------------------
+
+LM_MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_mesh")  # .gitignore lists build/
+LM_MESH_FACTORS = ((2, 2), (1, 4))
+LM_MESH_B, LM_MESH_S = 4, 128
+LM_MESH_PROMPT, LM_MESH_CACHE, LM_MESH_TICKS = 64, 128, 4
+LM_MESH_LOGITS = 1e-4        # f32 logits: of the largest |logit|
+LM_MESH_PROBE = ["--arch", "llama3.2-3b", "--cell", "train_4k", "--mesh", "2x2",
+                 "--backend", "gloo", "--batch", str(LM_MESH_B), "--seq", str(LM_MESH_S),
+                 "--repeat", "2", "--dtype", "float32", "--kv-chunk", "128", "--top", "8"]
+
+
+def lm_tree_unflatten(flat: dict) -> dict:
+    """``{path tuple: leaf}`` -> the nested dicts."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _lm_mesh_cfg(mesh=None):
+    cfg = llama_layers(2, dtype="float32")
+    return PT.tuned_config(cfg, mesh) if mesh is not None else cfg
+
+
+def _timed_step(step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, {k: float(v) for k, v in m.items()}, 1e3 * (time.perf_counter() - t0)
+
+
+def _trace_once(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the card's busy
+    ms and the idle share (None where the trace recorded no device event).
+    Never runs ``fn`` again, unlike :func:`trace_cell_wave`: the other ranks
+    take the same collectives once."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms = sum(e.self_device_time_total for e in on_card(prof.key_averages())) / 1e3
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_ms or None,
+            "device_idle_share": 1 - busy_ms / (1e3 * wall) if busy_ms else None}
+
+
+def _hold_params(state, ref, main: bool, what: str) -> dict:
+    """Every param gathered (a collective); rank 0 holds each to the
+    one-process card step at lm_train's tolerances."""
+    lr = LM_HOLD_OPT["lr"]
+    worst_max, worst_rms, bad = 0.0, 0.0, []
+    for path, p in lm_tree_flatten(state["params"]):
+        whole = PT.gather_tensor(p)
+        if main:
+            want = ref["end"][path].to(whole.device)
+            d = (whole - want).abs()
+            dmax, drms = float(d.max()), float((d ** 2).mean().sqrt())
+            moved = ref["moves"][path]
+            worst_max = max(worst_max, dmax / lr)
+            worst_rms = max(worst_rms, drms / max(moved, 1e-30))
+            if dmax > LM_TRAIN_PARAM_LR * lr or drms > LM_TRAIN_PARAM_RMS * moved:
+                bad.append(f"{path}: max {dmax:.3g}, RMS {drms:.3g} of a {moved:.3g} move")
+        del whole
+    if bad:
+        raise AssertionError(f"lm_mesh {what}: params differ from one process: {bad}")
+    return {"param_max_diff_in_lr": worst_max, "param_rms_diff_of_move": worst_rms}
+
+
+def _lm_mesh_serve(mesh, cfg, ref, dev) -> dict:
+    """The one-process run's end params sharded, a sharded prefill of the
+    prompt into a float32 cache and LM_MESH_TICKS decode ticks fed the
+    one-process greedy tokens; logits held to the one-process ones."""
+    prof = PT.RunProfile()
+    params = PT.shard_tree(ref["end_tree"], lm_ts.param_shardings(cfg, mesh, prof), dev)
+    cache = lm_model.init_cache(cfg, LM_MESH_B, LM_MESH_CACHE, torch.float32, "meta")
+    cache = PT.shard_tree(lm_model.init_cache(cfg, LM_MESH_B, LM_MESH_CACHE, torch.float32, dev),
+                          lm_ts.cache_shardings(cfg, cache, mesh, prof))
+    prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=128, mesh=mesh, prof=prof)
+    errs, ties, argmax_ok, ms = [], 0, True, []
+    with torch.no_grad():
+        for t in range(LM_MESH_TICKS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == 0:
+                lg, _ = prefill(params, ref["prompt"].to(dev), cache)
+            else:
+                lg, _ = decode(params, ref["next"][t - 1].to(dev), LM_MESH_PROMPT + t - 1, cache)
+            lg = PT.gather_tensor(lg)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            want = ref["logits"][t].to(dev)
+            top = float(want.abs().max())
+            err = float((lg - want).abs().max())
+            errs.append(err / top)
+            if err > LM_MESH_LOGITS * top:
+                raise AssertionError(f"lm_mesh serve tick {t}: logits {err:.3g} of {top:.3g}")
+            two = want.topk(2, dim=-1).values
+            clear = (two[:, 0] - two[:, 1]) > 2 * LM_MESH_LOGITS * top
+            ties += int((~clear).sum())
+            if not bool((lg.argmax(-1) == want.argmax(-1))[clear].all()):
+                argmax_ok = False
+    if not argmax_ok:
+        raise AssertionError("lm_mesh serve: a greedy token differs outside near ties")
+    return {"logit_err_of_max": errs, "near_ties": ties, "prefill_ms": ms[0],
+            "decode_tick_ms": ms[1:]}
+
+
+def _lm_mesh_pipeline(dev) -> dict:
+    """``pipeline_apply`` over the 4 ranks as stages on the card (R = 8,
+    B = 16, D = 32, 4 microbatches): the output and each stage's grads
+    against the same layers run one after another on this rank's card."""
+    from repro_torch.sharding.pipeline import pipeline_apply
+
+    g = torch.Generator().manual_seed(7)
+    w = (0.3 * torch.randn(8, 32, 32, generator=g)).to(dev)
+    b = (0.01 * torch.randn(8, 32, generator=g)).to(dev)
+    x = torch.randn(16, 32, generator=g).to(dev)
+    s = torch.distributed.get_rank()
+    lp = {"w": w[2 * s:2 * s + 2].clone().requires_grad_(),
+          "b": b[2 * s:2 * s + 2].clone().requires_grad_()}
+
+    def layer(pr, h):
+        return torch.tanh(h @ pr["w"] + pr["b"])
+
+    out = pipeline_apply(layer, lp, x, None, 4)
+    (out ** 2).sum().backward()
+    sp = {"w": w.clone().requires_grad_(), "b": b.clone().requires_grad_()}
+    h = x
+    for r in range(8):
+        h = layer({k: v[r] for k, v in sp.items()}, h)
+    (h ** 2).sum().backward()
+    out, h = out.detach(), h.detach()
+    err = {"out": float((out - h).abs().max())}
+    for k in ("w", "b"):
+        err[f"grad_{k}"] = float((lp[k].grad - sp[k].grad[2 * s:2 * s + 2]).abs().max())
+    if err["out"] > 2e-5 * max(float(h.abs().max()), 1.0) or max(
+            err[f"grad_{k}"] / max(float(sp[k].grad.abs().max()), 1e-30) for k in ("w", "b")) > 2e-5:
+        raise AssertionError(f"lm_mesh pipeline: card vs its sequential form {err}")
+    return err
+
+
+def lm_mesh_ranks():
+    """What each of the 4 ranks (gloo, sharing the card) runs: under 2x2
+    and 1x4 the sharded draw, two AdamW steps held to the one-process card
+    steps, one traced step, the sharded serve steps; under 2x2 also the
+    sharded checkpoint (restored by rank 0 in one process and by each rank
+    sharded),
+    the collective probe's LM table and the 4-stage pipeline."""
+    from repro_torch.launch import collective_probe as t_probe
+
+    ref = torch.load(os.path.join(LM_MESH_DIR, "ref.pt"), mmap=True, weights_only=False)
+    ref["end_tree"] = lm_tree_unflatten(ref["end"])
+    out = {}
+    for d, m in LM_MESH_FACTORS:
+        mesh = make_mesh_2d(d, m, device="cuda", backend="gloo")
+        dev, main = mesh.device, mesh.is_main
+        res = {}
+        cfg = _lm_mesh_cfg(mesh)
+        opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+        sh = lm_ts.state_shardings(cfg, opt_cfg, mesh)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), dev, sh)
+        torch.cuda.synchronize()
+        res["draw_s"] = time.perf_counter() - t0
+        step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=128), mesh=mesh)
+        stream = TokenStream(cfg.vocab_size, LM_MESH_B, LM_MESH_S, seed=0)
+        res["steps"], res["step_ms"] = [], []
+        for i in range(2):
+            state, met, ms = _timed_step(step, state, stream.batch_at(i))
+            res["steps"].append(met)
+            res["step_ms"].append(ms)
+            for k in ("loss", "loss_total", "grad_norm"):
+                a, b = met[k], ref["metrics"][i][k]
+                if not abs(a - b) <= LM_TRAIN_METRIC_REL * abs(b):
+                    raise AssertionError(f"lm_mesh {d}x{m} step {i + 1}: {k} {a} vs {b}")
+        res.update(_hold_params(state, ref, main, f"{d}x{m}"))
+        if (d, m) == (2, 2):
+            ck = Checkpointer(os.path.join(LM_MESH_DIR, "ckpt_2x2"))
+            t0 = time.perf_counter()
+            ck.save(2, state, extra={"data_step": 2})
+            res["ckpt_save_s"] = time.perf_counter() - t0
+            # restored in one process (rank 0, no shardings) == the gathered state
+            one = ck.restore(2, lm_abstract_state(cfg, opt_cfg))[0] if main else None
+            flat_one = dict(lm_tree_flatten(one)) if main else {}
+            for path, leaf in lm_tree_flatten(state):
+                whole = PT.gather_tensor(leaf)
+                if main and not np.array_equal(whole.cpu().numpy(), flat_one[path]):
+                    raise AssertionError(f"lm_mesh 2x2: checkpoint leaf {path} restored in "
+                                         f"one process differs from the gathered state")
+                del whole
+            del one, flat_one
+            tree, _ = ck.restore(2, lm_tree_map(
+                lambda t: LeafSpec(tuple(t.shape), np.dtype(str(t.dtype)[6:])), state), sh)
+            res["restored_blocks_equal"] = all(
+                torch.equal(PT.local(a), PT.local(b)) if PT.is_sharded(a)
+                else np.array_equal(np.asarray(a), b.cpu().numpy())
+                for (_, a), (_, b) in zip(lm_tree_flatten(tree), lm_tree_flatten(state)))
+            if not res["restored_blocks_equal"]:
+                raise AssertionError("lm_mesh 2x2: a rank's sharded restore differs")
+            del tree
+        batch = stream.batch_at(2)
+        if main:
+            res["trace"] = _trace_once(lambda: step(state, batch))
+        else:
+            step(state, batch)
+            torch.cuda.synchronize()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+        if (d, m) == (2, 2):
+            args = t_probe.parse_args(LM_MESH_PROBE)
+            res["probe"] = t_probe.probe_lm(args, mesh=mesh, state=state)["lines"]
+        del state, step
+        _free()
+        res["serve"] = _lm_mesh_serve(mesh, cfg, ref, dev)
+        _free()
+        if (d, m) == (2, 2):
+            res["pipeline"] = _lm_mesh_pipeline(dev)
+        out[f"{d}x{m}"] = res
+    return out
+
+
+def lm_mesh_phase(dev, smi: str) -> dict:
+    """The one-process card reference (llama3.2-3b at full width cut to 2
+    layers, f32: two AdamW steps at 4 x 128, one traced; then its end
+    params served: a 64-token prefill and LM_MESH_TICKS greedy ticks) to
+    a file; then the 4 gloo ranks (:func:`lm_mesh_ranks`)."""
+    torch.empty(1, device=dev)
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    os.makedirs(LM_MESH_DIR)
+    t_phase = time.perf_counter()
+    cfg = _lm_mesh_cfg(PT.mesh_shape({"data": 2, "model": 2}))
+    opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), dev)
+    start = {p: t.detach().to("cpu", copy=True) for p, t in lm_tree_flatten(state["params"])}
+    step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=128))
+    stream = TokenStream(cfg.vocab_size, LM_MESH_B, LM_MESH_S, seed=0)
+    metrics, one_ms = [], []
+    for i in range(2):
+        state, met, ms = _timed_step(step, state, stream.batch_at(i))
+        metrics.append(met)
+        one_ms.append(ms)
+    end = {p: t.detach().to("cpu", copy=True) for p, t in lm_tree_flatten(state["params"])}
+    moves = {p: float(((end[p] - start[p]) ** 2).mean().sqrt()) for p in end}
+    del start
+    batch = stream.batch_at(2)
+    one_trace = trace_cell_wave("lm_mesh one-process train step", lambda: step(state, batch),
+                                repeats=1)
+    one_peak = torch.cuda.max_memory_allocated(dev) - base
+    del state, step
+    _free()
+    # the serve reference on the end params
+    params = lm_tree_unflatten({p: t.to(dev) for p, t in end.items()})
+    prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=128)
+    cache = lm_model.init_cache(cfg, LM_MESH_B, LM_MESH_CACHE, torch.float32, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_MESH_B, LM_MESH_PROMPT), generator=_gen(12))
+    logits, nxt, serve_ms = [], [], []
+    with torch.no_grad():
+        for t in range(LM_MESH_TICKS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == 0:
+                lg, _ = prefill(params, prompt.to(dev), cache)
+            else:
+                lg, _ = decode(params, nxt[-1].to(dev), LM_MESH_PROMPT + t - 1, cache)
+            torch.cuda.synchronize()
+            serve_ms.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg.cpu())
+            nxt.append(lg.argmax(-1).cpu())
+    del params, cache
+    _free()
+    torch.save({"end": end, "moves": moves, "metrics": metrics, "prompt": prompt,
+                "next": nxt[:LM_MESH_TICKS], "logits": logits},
+               os.path.join(LM_MESH_DIR, "ref.pt"))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(lm_mesh_ranks, 4, work_dir=os.path.join(LM_MESH_DIR, "ranks"),
+                        device="cuda", backend="gloo", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    out = {"params": lm_model.param_count(cfg), "batch": LM_MESH_B, "seq": LM_MESH_S,
+           "one_process": {"step_ms": one_ms, "peak_bytes": one_peak, "trace": one_trace,
+                           "prefill_ms": serve_ms[0], "decode_tick_ms": serve_ms[1:]},
+           "phase_wall_s": wall, "ranks_s": ranks_s}
+    print(f"  llama3.2-3b 2 layers f32 ({out['params']:,} params), B x S = {LM_MESH_B} x "
+          f"{LM_MESH_S}, on {smi}: one process (the card alone) step ms "
+          f"{[round(v, 1) for v in one_ms]}, traced idle share "
+          f"{one_trace['device_idle_share']}, peak {one_peak / 1e9:.2f} GB; prefill "
+          f"{serve_ms[0]:.1f} ms, decode ticks {[round(v, 1) for v in serve_ms[1:]]} ms",
+          flush=True)
+    for f in ranks[0]:
+        r = [x[f] for x in ranks]
+        tr = r[0]["trace"]
+        out[f] = {"step_ms": [x["step_ms"] for x in r], "draw_s": [x["draw_s"] for x in r],
+                  "peak_bytes": [x["peak_bytes"] for x in r], "trace_rank0": tr,
+                  "param_max_diff_in_lr": r[0]["param_max_diff_in_lr"],
+                  "param_rms_diff_of_move": r[0]["param_rms_diff_of_move"],
+                  "steps": r[0]["steps"], "serve": r[0]["serve"]}
+        print(f"  {f}, 4 ranks sharing one card over gloo ({smi}): step ms/rank "
+              f"{[[round(v, 1) for v in x['step_ms']] for x in r]}; draw s/rank "
+              f"{[round(x['draw_s'], 1) for x in r]}; peak GB/rank "
+              f"{[round(x['peak_bytes'] / 1e9, 2) for x in r]}; rank 0's traced step: wall "
+              f"{tr['wall_ms']:.1f} ms, idle share {tr['device_idle_share']}; params after "
+              f"step 2 vs one process: max {r[0]['param_max_diff_in_lr']:.3g} lr, RMS "
+              f"{r[0]['param_rms_diff_of_move']:.3g} of the move; serve logits err/max "
+              f"{[f'{e:.2g}' for e in r[0]['serve']['logit_err_of_max']]}, near ties "
+              f"{r[0]['serve']['near_ties']}, prefill {r[0]['serve']['prefill_ms']:.1f} ms, "
+              f"decode ticks {[round(v, 1) for v in r[0]['serve']['decode_tick_ms']]} ms",
+              flush=True)
+    two = ranks[0]["2x2"]
+    out["2x2"].update(ckpt_save_s=two["ckpt_save_s"], pipeline=two["pipeline"],
+                      probe=two["probe"])
+    print(f"  2x2 checkpoint: saved in {two['ckpt_save_s']:.1f} s (gathered leaf by leaf, "
+          f"rank 0 writes), each rank's sharded restore == its blocks, restored in one "
+          f"process (rank 0, no shardings) == the gathered state, leaf by leaf; "
+          f"pipeline_apply 4 stages card vs sequential: {two['pipeline']}", flush=True)
+    print("  collective probe (rank 0), llama3.2-3b 2 layers f32 train step on 2x2:", flush=True)
+    for line in two["probe"]:
+        print(f"    {line}", flush=True)
+    print(f"  lm_mesh phase {wall:.1f} s (ranks {ranks_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("device")
@@ -3150,7 +3504,17 @@ def main() -> int:
           "checkpoint, resume on the card, the full-size step)")
     lm_train = lm_train_phase(dev, smi_line)
     seconds["lm_train"] = time.perf_counter() - t0
-    print(f"  slice-6 to slice-11 phase seconds: {seconds}", flush=True)
+
+    t0 = time.perf_counter()
+    phase("lm_mesh: LM sharding, llama3.2-3b full width 2 layers f32, DTensor steps on "
+          "2x2 and 1x4 (4 ranks sharing the card over gloo) vs one process, the sharded "
+          "checkpoint, the collective probe, the pipeline")
+    reset_counts()
+    lm_mesh = lm_mesh_phase(dev, smi_line)
+    if any(read_counts().values()):
+        raise AssertionError(f"lm_mesh: the LM path launched TNN kernels {read_counts()}")
+    seconds["lm_mesh"] = time.perf_counter() - t0
+    print(f"  slice-6 to slice-12 phase seconds: {seconds}", flush=True)
 
     phase("report")
     kernels = []
@@ -3225,6 +3589,7 @@ def main() -> int:
         "mesh": {k: v for k, v in mesh.items() if k not in ("window_timing",)},
         "lm": lm,
         "lm_train": lm_train,
+        "lm_mesh": lm_mesh,
         "phase_seconds": seconds,
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,

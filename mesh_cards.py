@@ -19,10 +19,25 @@ First in one process, then for each mesh of 2x2, 4x1 and 1x4 under ``torchrun
 Every checkpoint a meshed run writes must equal the one-process run's, file
 for file (the weights, key, wave and vote tables, and the metadata). Then
 the dry run's column-parallel ``tnn_train_8k`` (640 sites, pallas and
-fused) on 1x4 beside the unmeshed 640-site wave. Each run's rate and wall
-time are printed beside the cards' ``nvidia-smi`` lines, then one JSON line
-with every number. The launchers print only on rank 0, so a rate is rank
-0's. Each command has 600 s. Exits 2 when fewer than 4 cards are visible.
+fused) on 1x4 beside the unmeshed 640-site wave.
+
+Then the LM train launcher on llama3.2-3b at full size (28 layers), bf16
+compute, 4 steps at 4 x 512 (``--lm-smoke``: its smoke config, for a CPU
+rehearsal): in one process, then under 2x2 and 1x4 (the state DTensors
+placed by the reference's rules). Each meshed run's losses are held to the
+one process's within 1e-3 relative. Its final checkpoint's params are
+compared with the one process's against the f32 tolerances of the CPU
+tests (0.25 lr, and 1e-3 of the RMS distance they moved from the draw) and
+the result is printed and recorded, not held: in bf16 compute the meshed
+sums' order moves AdamW's normalised updates by up to a few lr (llama's
+smoke config on the CPU: 2.7 lr, an RMS of 2.9% of the move). Its step ms
+(rank 0's ``metrics.jsonl``), tokens/s and MFU by the spec tree (the dense
+bf16 peak) are printed. The checkpoints are deleted once compared.
+
+Each run's rate and wall time are printed beside the cards' ``nvidia-smi``
+lines, then one JSON line with every number. The launchers print only on
+rank 0, so a rate is rank 0's. Each command has 600 s. Exits 2 when fewer
+than 4 cards are visible.
 """
 from __future__ import annotations
 
@@ -148,6 +163,93 @@ def colpar(args, out_dir: str):
     return res
 
 
+LM_MESHES = ("2x2", "1x4")
+LM_ARGS = ["--arch", "llama3.2-3b", "--steps", "4", "--batch", "4", "--seq", "512"]
+
+
+def lm_train(args, ckpt: str, mesh: str = ""):
+    cmd = ["repro_torch.launch.train", *LM_ARGS, "--ckpt-dir", ckpt, "--device", args.device]
+    if args.lm_smoke:
+        cmd.append("--smoke")
+    n = 1
+    if mesh:
+        d, m = (int(v) for v in mesh.split("x"))
+        cmd += ["--mesh", mesh]
+        n = d * m
+    _, wall = run(cmd, n)
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return {"losses": [l["loss_total"] for l in lines], "step_s": [l["dt_s"] for l in lines],
+            "wall_s": wall}
+
+
+def lm_params(ckpt: str):
+    """The final checkpoint's params, as numpy arrays by path."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    ck = Checkpointer(ckpt)
+    d = os.path.join(ckpt, f"step_{ck.latest_step():08d}")
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    import numpy as np
+
+    return {l["path"]: np.load(os.path.join(d, l["file"]), mmap_mode="r")
+            for l in meta["leaves"] if l["path"].startswith("['params']")}
+
+
+def lm(args, out_dir: str):
+    """The LM launcher in one process, then under each of LM_MESHES, held
+    to it; numbers by run."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import random as t_random
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.roofline import analysis as RL
+    from repro_torch.train import optimizer as OPT
+
+    cfg = smoke_config("llama3.2-3b") if args.lm_smoke else get_config("llama3.2-3b")
+    batch, seq, steps = 4, 512, 4
+    opt_cfg = OPT.OptConfig(warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
+    model_flops = RL.lm_train_work(cfg, opt_cfg, batch, seq)["model_flops"]
+    res = {}
+    one = os.path.join(out_dir, "one")
+    res["one"] = lm_train(args, one)
+    # the draw the runs start from, leaf by leaf, for the RMS of each move
+    start = {"".join(f"[{k!r}]" for k in ("params",) + p): t.cpu().double().numpy()
+             for p, t in tree_flatten(M.init_params(cfg, t_random.PRNGKey(0), args.device))}
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    want = lm_params(one)
+    lr = opt_cfg.lr
+    for mesh in LM_MESHES:
+        d = os.path.join(out_dir, mesh)
+        r = res[mesh] = lm_train(args, d, mesh)
+        for a, b in zip(r["losses"], res["one"]["losses"]):
+            if not abs(a - b) <= 1e-3 * abs(b):
+                raise SystemExit(f"LM {mesh}: losses {r['losses']} vs {res['one']['losses']}")
+        got, worst_max, worst_rms = lm_params(d), 0.0, 0.0
+        for path, w in want.items():
+            diff = np.abs(np.asarray(got[path], np.float64) - np.asarray(w, np.float64))
+            moved = float(np.sqrt(np.mean((np.asarray(w, np.float64) - start[path]) ** 2)))
+            dmax, drms = float(diff.max()), float(np.sqrt(np.mean(diff ** 2)))
+            worst_max, worst_rms = max(worst_max, dmax / lr), max(worst_rms, drms / moved)
+        r.update(param_max_diff_in_lr=worst_max, param_rms_diff_of_move=worst_rms,
+                 params_within_f32_tolerances=worst_max <= 0.25 and worst_rms <= 1e-3)
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(one, ignore_errors=True)
+    del start
+    for name, r in res.items():
+        step_s = float(np.median(r["step_s"][1:])) if len(r["step_s"]) > 1 else r["step_s"][0]
+        r.update(step_ms_median=1e3 * step_s, tokens_per_s=batch * seq / step_s,
+                 mfu=RL.lm_mfu(model_flops, step_s))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sites", type=int, default=625)
@@ -155,6 +257,8 @@ def main() -> int:
     ap.add_argument("--colpar-batch", type=int, default=None,
                     help="cut the column-parallel cell's 8,192 images (a rehearsal)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "mesh_cards"))
+    ap.add_argument("--lm-smoke", action="store_true",
+                    help="the LM part at llama3.2-3b's smoke config (a rehearsal)")
     args = ap.parse_args()
     import torch
 
@@ -196,6 +300,17 @@ def main() -> int:
     res["colpar_1x4"] = colpar(args, os.path.join(args.out, "dry"))
     print(f"  colpar tnn_train_8k on 1x4 ({smi.splitlines()[0]}): "
           f"{res['colpar_1x4']}", flush=True)
+    res["lm"] = lm(args, os.path.join(args.out, "lm"))
+    for name, r in res["lm"].items():
+        print(f"  LM train launcher llama3.2-3b{' (smoke)' if args.lm_smoke else ''}, "
+              f"{name} ({'NCCL' if args.device == 'cuda' and name != 'one' else '1 process' if name == 'one' else 'gloo'}"
+              f", {smi.splitlines()[0]}): losses {r['losses']}, step ms median "
+              f"{r['step_ms_median']:.1f}, {r['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{r['mfu']:.4f}" + (f", params vs one process: max "
+                                  f"{r['param_max_diff_in_lr']:.3g} lr, RMS "
+                                  f"{r['param_rms_diff_of_move']:.3g} of the move (within "
+                                  f"the f32 tolerances: {r['params_within_f32_tolerances']})"
+                                  if name != "one" else ""), flush=True)
     print(json.dumps(res))
     return 0
 

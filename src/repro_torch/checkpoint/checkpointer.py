@@ -22,6 +22,14 @@ the logical weights (every rank calls it) and rank 0 writes them, and
 :func:`restore_tnn` reads the full tree on every rank and cuts the rank's
 window, so a state saved under one factorization restores under any other
 or none, file for file the reference's.
+
+An LM state whose leaves are DTensors (``train.train_step`` on a mesh) saves
+the same way: :meth:`Checkpointer.save` is then a collective that gathers
+the state leaf by leaf (so a rank's device holds one whole leaf at a time),
+rank 0 writes the step before every rank returns, and the files are those a
+one-process run writes. :meth:`Checkpointer.restore` with ``shardings``
+reads each rank's block of each leaf alone (a memory-mapped file sliced)
+into a DTensor.
 """
 from __future__ import annotations
 
@@ -158,13 +166,13 @@ def save_tnn(ckpt: "Checkpointer", cfg, step: int, state, extra: Dict[str, Any],
     ckpt.save(step, state, extra=extra, block=block)
 
 
-def _leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+def _leaf_paths(tree, prefix: str = "", leaf=lambda x: False) -> List[Tuple[str, Any]]:
     """(keystr path, leaf) of a nested dict, keys in sorted order, as
     ``jax.tree_util`` flattens and names it."""
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and not leaf(tree):
         out: List[Tuple[str, Any]] = []
         for k in sorted(tree):
-            out += _leaf_paths(tree[k], f"{prefix}[{k!r}]")
+            out += _leaf_paths(tree[k], f"{prefix}[{k!r}]", leaf)
         return out
     return [(prefix, tree)]
 
@@ -185,6 +193,39 @@ def _host(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(v, DTensor)
+
+
+def _meta(step: int, leaves, extra) -> Dict[str, Any]:
+    return {
+        "step": int(step),
+        "leaves": [{"path": p, "file": _fname(p), "shape": list(a.shape),
+                    "dtype": str(a.dtype)} for p, a in leaves],
+        "extra": extra or {},
+    }
+
+
+def _read_block(path: str, sharding) -> torch.Tensor:
+    """This rank's block of the ``.npy`` at ``path`` under ``sharding`` (a
+    ``sharding.partition.NamedSharding``), as a DTensor on the mesh's
+    device; only the block is read."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.partition import device_mesh, local_slices
+
+    dm = device_mesh(sharding.mesh)
+    places = sharding.placements()
+    arr = np.load(path, mmap_mode="r")
+    block = np.ascontiguousarray(arr[local_slices(arr.shape, dm, places)])
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dm.device_type == "cuda" else torch.device("cpu"))
+    return DTensor.from_local(torch.from_numpy(block).to(dev), dm, places,
+                              run_check=False)
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -201,16 +242,12 @@ class Checkpointer:
         thread starts, so the caller may update its tensors in place at
         once; it writes in the background unless ``block``, and
         :meth:`wait` joins it."""
-        leaves = [(p, _host(v)) for p, v in _leaf_paths(state)]
-        meta = {
-            "step": int(step),
-            "leaves": [
-                {"path": p, "file": _fname(p), "shape": list(a.shape),
-                 "dtype": str(a.dtype)}
-                for p, a in leaves
-            ],
-            "extra": extra or {},
-        }
+        flat = _leaf_paths(state)
+        if any(_is_dtensor(v) for _, v in flat):
+            self._save_sharded(step, flat, extra)
+            return
+        leaves = [(p, _host(v)) for p, v in flat]
+        meta = _meta(step, leaves, extra)
         self.wait()
         if not block:
             self._thread = threading.Thread(
@@ -218,6 +255,23 @@ class Checkpointer:
             self._thread.start()
         else:
             self._write(step, leaves, meta)
+
+    def _save_sharded(self, step: int, flat, extra) -> None:
+        """Every rank gathers each leaf in turn; rank 0 keeps the host copies
+        and writes them; all ranks leave once the step is in place."""
+        import torch.distributed as dist
+
+        main = dist.get_rank() == 0
+        leaves = []
+        for p, v in flat:
+            whole = v.full_tensor() if _is_dtensor(v) else v
+            if main:
+                leaves.append((p, _host(whole)))
+            del whole
+        if main:
+            self.wait()
+            self._write(step, leaves, _meta(step, leaves, extra))
+        dist.barrier()
 
     def _write(self, step: int, leaves, meta) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -271,21 +325,28 @@ class Checkpointer:
         with open(os.path.join(d, "meta.json")) as f:
             return json.load(f).get("extra", {})
 
-    def restore(self, step: int, abstract_state) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, step: int, abstract_state, shardings=None
+                ) -> Tuple[Any, Dict[str, Any]]:
         """Load step ``step`` into the structure of ``abstract_state`` (a
         nested dict of :class:`LeafSpec`, or of arrays whose shapes are the
-        target's); returns (the tree of numpy arrays, extra metadata)."""
+        target's); returns (the tree of numpy arrays, extra metadata). With
+        ``shardings`` (a tree of ``NamedSharding`` for the state's leaves)
+        each leaf of more than 0 dims is the rank's block, a DTensor."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         by_path = {l["path"]: l for l in meta["leaves"]}
+        sh = dict(_leaf_paths(shardings, leaf=lambda x: hasattr(x, "spec"))
+                  ) if shardings is not None else {}
         vals = {}
         for p, spec in _leaf_paths(abstract_state):
             if p not in by_path:
                 raise KeyError(f"checkpoint missing leaf {p}")
-            arr = np.load(os.path.join(d, by_path[p]["file"]))
-            want = tuple(spec.shape) if hasattr(spec, "shape") else arr.shape
-            if tuple(arr.shape) != want:
-                raise ValueError(f"{p}: checkpoint shape {arr.shape} != {want}")
-            vals[p] = arr
+            file = os.path.join(d, by_path[p]["file"])
+            got = tuple(by_path[p]["shape"])
+            want = tuple(spec.shape) if hasattr(spec, "shape") else got
+            if got != want:
+                raise ValueError(f"{p}: checkpoint shape {got} != {want}")
+            vals[p] = (_read_block(file, sh[p]) if len(got) and p in sh
+                       else np.load(file))
         return _unflatten(abstract_state, vals), meta["extra"]

@@ -77,6 +77,7 @@ class Mesh2D:
     data_group: Any          # this rank's column of the grid (same m)
     model_group: Any         # this rank's row of the grid (same d)
     world_group: Any
+    _device_mesh: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -85,6 +86,24 @@ class Mesh2D:
     @property
     def size(self) -> int:
         return self.n_data * self.n_model
+
+    @property
+    def device_mesh(self):
+        """This mesh as a ``torch.distributed`` ``DeviceMesh`` with dims
+        ("data", "model"), over the mesh's own groups and rank order (what
+        DTensor places LM tensors on); made on first use."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if self.backend == "gloo" and self.device.type == "cuda":
+                from repro_torch.sharding import gloo_cuda
+
+                gloo_cuda.install()
+            grid = torch.arange(self.size).reshape(self.n_data, self.n_model)
+            self._device_mesh = DeviceMesh.from_group(
+                [self.data_group, self.model_group], self.device.type, mesh=grid,
+                mesh_dim_names=("data", "model"))
+        return self._device_mesh
 
     @property
     def data_index(self) -> int:

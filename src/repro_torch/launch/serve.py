@@ -323,7 +323,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         except ValueError as e:
             ap.error(str(e))
         if args.mesh:
-            ap.error("--mesh serves tnn-mnist only; LM sharding is ROADMAP Queue 1 item 6(e)")
+            ap.error("--mesh serves tnn-mnist only: the reference serves an LM "
+                     "unsharded (its serve_lm builds no mesh rules), and the "
+                     "sharded LM prefill and decode steps are the dry run's and "
+                     "the collective probe's (train_step.make_serve_steps(mesh=))")
     return args
 
 

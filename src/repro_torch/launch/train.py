@@ -31,8 +31,21 @@ resumes. ``--smoke`` trains the family's smoke config:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --smoke --steps 6 --batch 2 --seq 16 --device cpu
 
-LM sharding (``--mesh``, ``--production-mesh``) is ROADMAP Queue 1 item
-6(e).
+``--mesh DxM`` with an LM trains on a (data, model) process mesh under
+``torchrun --nproc-per-node D*M``: the state's leaves are DTensors placed by
+the reference's ``param_rules`` (FSDP over "data", tensor parallel over
+"model"; ``Dx1`` is the reference's host mesh, all ranks on "data"), the
+batch rows over "data", the MoE routing groups tiled to the data shards
+(the reference's ``_tuned``); each param is drawn whole on the rank's
+device from ``PRNGKey(0)``, bit for bit, its block kept and the rest freed.
+Rank 0 prints and writes the checkpoints, which are the files one process
+writes:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --smoke --mesh 2x2 --device cpu
+
+``--production-mesh`` (the reference's 16x16 and 2x16x16 meshes) needs 256
+and 512 cards and is refused.
 """
 from __future__ import annotations
 
@@ -53,12 +66,14 @@ from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import describe, make_mesh_2d, parse_mesh
 from repro_torch.models.model import param_count
+from repro_torch.sharding import partition as PT
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import train_step as TS
 from repro_torch.train.tnn_trainer import TNNTrainer
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 LM_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_launch_ckpt")
+PRODUCTION = {"single": "16x16 mesh (256 cards)", "multi": "2x16x16 mesh (512 cards)"}
 
 
 def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
@@ -107,25 +122,38 @@ def lm_opt_config(args: argparse.Namespace, cfg) -> OPT.OptConfig:
 def lm_trainer(args: argparse.Namespace, cfg=None) -> Trainer:
     """The LM run of the flags, built and ready to ``run()``: the model
     ``cfg`` (default: the arch's config, or its smoke config with
-    ``--smoke``), its state drawn from ``PRNGKey(0)`` on the device, the
-    train step, the token stream and the trainer, with the SIGTERM handler
-    installed."""
-    device = resolve_device(args.device)
+    ``--smoke``), its state drawn from ``PRNGKey(0)`` on the device (with
+    ``--mesh``: sharded on the process mesh, ``cfg`` tuned to it), the
+    train step, the token stream and the trainer, which can draw the step-0
+    state again, with the SIGTERM handler installed."""
+    mesh = (make_mesh_2d(*parse_mesh(args.mesh), device=args.device,
+                         backend=args.backend) if args.mesh else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
     if cfg is None:
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    prof = PT.RunProfile()
+    if mesh is not None:
+        cfg = PT.tuned_config(cfg, mesh, prof)
     ckpt_dir = args.ckpt_dir or LM_CKPT_DIR
     opt_cfg = lm_opt_config(args, cfg)
     tc = TS.TrainConfig(micro_steps=args.micro_steps, kv_chunk=128)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"training {cfg.name} ({param_count(cfg):,} parameters, {cfg.dtype}, "
-          f"{opt_cfg.name}, remat {cfg.remat}) on {where}: {args.steps} steps x "
-          f"batch {args.batch} x seq {args.seq}", flush=True)
-    state = TS.init_state(cfg, opt_cfg, t_random.PRNGKey(0), device)
+    if main_rank:
+        print(f"training {cfg.name} ({param_count(cfg):,} parameters, {cfg.dtype}, "
+              f"{opt_cfg.name}, remat {cfg.remat}) on {where}, {describe(mesh)}: "
+              f"{args.steps} steps x batch {args.batch} x seq {args.seq}", flush=True)
+    shardings = TS.state_shardings(cfg, opt_cfg, mesh, prof) if mesh is not None else None
+
+    def draw():
+        return TS.init_state(cfg, opt_cfg, t_random.PRNGKey(0), device, shardings)
+
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=0)
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=max(args.steps // 3, 5),
                          ckpt_dir=ckpt_dir, log_every=5,
                          metrics_path=os.path.join(ckpt_dir, "metrics.jsonl"))
-    trainer = Trainer(TS.make_train_step(cfg, opt_cfg, tc), state, stream, tcfg)
+    trainer = Trainer(TS.make_train_step(cfg, opt_cfg, tc, mesh=mesh, prof=prof), draw(),
+                      stream, tcfg, shardings=shardings, init_state=draw)
     trainer.install_preemption_handler()
     return trainer
 
@@ -135,7 +163,8 @@ def train_lm(args: argparse.Namespace, cfg=None) -> Dict[str, Any]:
     ``summary["trainer"]``)."""
     trainer = lm_trainer(args, cfg)
     summary = trainer.run()
-    print(summary, flush=True)
+    if trainer.is_main:
+        print(summary, flush=True)
     return dict(summary, trainer=trainer)
 
 
@@ -151,8 +180,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          f"tnn-mnist, {LM_CKPT_DIR} for an LM)")
     # LM options (the reference's)
     ap.add_argument("--production-mesh", choices=["single", "multi"], default=None,
-                    help="an LM's production mesh (not in the port: ROADMAP "
-                         "Queue 1 item 6(e))")
+                    help="an LM's production mesh (16x16 = 256 cards, 2x16x16 "
+                         "= 512): refused, use --mesh DxM")
     ap.add_argument("--steps", type=int, default=50, help="LM train steps")
     ap.add_argument("--batch", type=int, default=8, help="LM rows a step")
     ap.add_argument("--seq", type=int, default=128, help="LM tokens a row")
@@ -187,15 +216,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="(data, model) process mesh, e.g. --mesh 2x2 under "
                          "torchrun --nproc-per-node 4: batch rows shard over "
-                         "data, sites over model (tnn-mnist)")
+                         "data; sites over model (tnn-mnist), or the weights' "
+                         "tensor-parallel axes over model and their embed axis "
+                         "over data (an LM)")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="the mesh's backend (default nccl on cuda, gloo on "
                          "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.arch != "tnn-mnist" and (args.mesh or args.production_mesh):
-        ap.error("--mesh and --production-mesh train tnn-mnist only; LM sharding is "
-                 "ROADMAP Queue 1 item 6(e)")
+    if args.production_mesh and args.arch != "tnn-mnist":
+        ap.error(f"--production-mesh {args.production_mesh} is the reference's "
+                 f"{PRODUCTION[args.production_mesh]}: a process mesh of that size "
+                 f"needs that many cards; train on a --mesh DxM process mesh of "
+                 f"the cards this host has (torchrun --nproc-per-node D*M)")
     return args
 
 

@@ -14,12 +14,15 @@ already in that dtype (``model.compute_params``).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.context import replicate, shard_activation
+from repro_torch.sharding.partition import contiguous_grad, is_sharded, local, local_slices
 
 NEG_INF = -1e30
 
@@ -45,12 +48,16 @@ def embed_spec(vocab: int, d: int) -> Dict[str, ParamSpec]:
 
 def embed(tokens: torch.Tensor, p: Dict, dtype: torch.dtype) -> torch.Tensor:
     """Rows of the embedding, in ``dtype`` (gathered, then cast: the same
-    values as the reference's cast-then-take)."""
-    return F.embedding(tokens, p["embedding"]).to(dtype)
+    values as the reference's cast-then-take). On a mesh the table is made
+    whole first: DTensor's rule for a lookup in a vocab-sharded table
+    leaves a masked partial sum whose reduction fails on a 2-D mesh."""
+    out = F.embedding(tokens, replicate(p["embedding"])).to(dtype)
+    return shard_activation(out, ("batch", "seq", "embed"))
 
 
 def unembed(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    return torch.einsum("...d,vd->...v", x, p["embedding"].to(x.dtype))
+    logits = torch.einsum("...d,vd->...v", x, p["embedding"].to(x.dtype))
+    return shard_activation(logits, ("batch", "seq", "vocab")) if x.dim() == 3 else logits
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +109,8 @@ def mlp(x: torch.Tensor, p: Dict, act: str) -> torch.Tensor:
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default form
+    # rank-aware: decode-path activations are (B, f), train/prefill (B, S, f)
+    h = shard_activation(h, ("batch", "mlp") if h.dim() == 2 else ("batch", "seq", "mlp"))
     return torch.matmul(h, p["wo"].to(dt))
 
 
@@ -125,8 +134,13 @@ def flash_attention(
 
     Chunked online softmax over KV; O(Sq * kv_chunk) live scores. ``window``
     > 0 applies sliding-window masking (Mixtral SWA). ``cross=True`` disables
-    causal masking (encoder-decoder cross attention).
+    causal masking (encoder-decoder cross attention). DTensors run on each
+    rank's blocks (:func:`on_blocks`).
     """
+    if is_sharded(q):
+        return on_blocks(lambda ql, kl, vl, _: flash_attention(
+            ql, kl, vl, causal=causal, window=window, q_offset=q_offset,
+            kv_chunk=kv_chunk, cross=cross), q, k, v, q_heads=2)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -164,6 +178,43 @@ def flash_attention(
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def on_blocks(fn, q, k, v, q_heads: int):
+    """``fn(q, k, v, rows)`` (an attention whose rows and KV-head groups are
+    independent; ``rows`` the slice of the batch this rank holds) on each
+    rank's blocks of the DTensors: rows sharded as
+    ``q``'s batch is, the heads over the mesh dims that shard ``q``'s head
+    dim ``q_heads`` where every group size divides the KV heads (the
+    matching KV groups with them, ``k``/``v``'s dim 2), every other dim
+    whole; the output is a DTensor placed as ``q``. DTensor's propagation
+    through the attention's einsums would merge a sharded batch dim with a
+    sharded head dim, which torch 2.11 refuses and torch 2.13 does by
+    gathering the scores."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm, KV = q.device_mesh, k.shape[2]
+    heads = [i for i, pl in enumerate(q.placements) if pl.is_shard(q_heads)]
+    if KV % math.prod(dm.size(i) for i in heads):
+        heads = []
+    want_q, want_kv = [], []
+    for i, pl in enumerate(q.placements):
+        if pl.is_shard(0):
+            want_q.append(Shard(0))
+            want_kv.append(Shard(0))
+        elif i in heads:
+            want_q.append(Shard(q_heads))
+            want_kv.append(Shard(2))
+        else:
+            want_q.append(Replicate())
+            want_kv.append(Replicate())
+    ql = contiguous_grad(q.redistribute(dm, want_q).to_local())
+    kl, vl = (contiguous_grad(t.redistribute(dm, want_kv).to_local()) for t in (k, v))
+    rows = local_slices(q.shape, dm, want_q)[0]
+    # contiguous: a DTensor's strides are its global shape's, and a later
+    # view of a permuted local block fails
+    return DTensor.from_local(fn(ql, kl, vl, rows).contiguous(), dm, want_q,
+                              run_check=False)
+
+
 def pos_vec(pos, B: int, device) -> torch.Tensor:
     """Scalar or (B,) position -> (B,) int64 on ``device``."""
     pos = torch.as_tensor(pos, dtype=torch.int64, device=device)
@@ -177,6 +228,8 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
     it was (the reference's masked select writes nothing there)."""
     B, S = cache.shape[0], cache.shape[1]
     slot = pos_vec(slot, B, cache.device)
+    if is_sharded(cache):
+        return _sharded_cache_write(cache, new, slot)
     rows = torch.arange(B, device=cache.device)
     inside = (slot >= 0) & (slot < S)
     at = torch.clamp(slot, 0, S - 1)
@@ -186,13 +239,50 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
     return cache
 
 
+def rows_block(t, cache):
+    """For a write of the DTensor ``t`` into a DTensor ``cache``
+    (``cache_axes``: rows sharded over the data axes, positions over the
+    model axis, the rest whole): ``t``'s rows that this rank's block of the
+    cache holds, every other dim whole, as a local tensor; and the cache
+    block's slices."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [Shard(0) if p.is_shard(0) else Replicate() for p in cache.placements]
+    return (local(t.redistribute(t.device_mesh, want)),
+            local_slices(cache.shape, cache.device_mesh, cache.placements))
+
+
+def _sharded_cache_write(cache, new, slot: torch.Tensor):
+    """:func:`cache_write` into a DTensor cache: each rank writes the rows
+    it holds at the slots that fall in its block of positions."""
+    new_l, sl = rows_block(new, cache)
+    rows_sl, pos_sl = sl[0], sl[1]
+    c = local(cache)
+    at = slot[rows_sl] - pos_sl.start
+    Bl, Sl = c.shape[0], c.shape[1]
+    inside = (at >= 0) & (at < Sl)
+    at_c = torch.clamp(at, 0, Sl - 1)
+    rows = torch.arange(Bl, device=c.device)
+    keep = c[rows, at_c]
+    mask = inside.reshape((Bl,) + (1,) * (keep.dim() - 1))
+    c[rows, at_c] = torch.where(mask, new_l.to(c.dtype), keep)
+    return cache
+
+
 def decode_attention(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length
 ) -> torch.Tensor:
     """Single-token attention against a KV cache.
 
     q: (B, H, hd); caches: (B, S, KV, hd); length: () or (B,) valid length.
+    DTensors run on each rank's blocks (:func:`on_blocks`), the cache's
+    positions made whole.
     """
+    if is_sharded(q):
+        length = torch.as_tensor(length, device=q.device)
+        return on_blocks(lambda ql, kl, vl, rows: decode_attention(
+            ql, kl, vl, length[rows] if length.dim() else length),
+            q, k_cache, v_cache, q_heads=1)
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     rep = H // KV
@@ -244,6 +334,8 @@ def gqa_qkv(x: torch.Tensor, p: Dict, cfg, positions: torch.Tensor):
     q, k, v = _qkv(x, p)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_activation(q, ("batch", "seq", "heads", None))
+    k = shard_activation(k, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 

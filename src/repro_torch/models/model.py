@@ -50,9 +50,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (
-    ParamSpec, is_spec, leaf_keys, stack_specs, tree_flatten, tree_init, tree_map,
-    tree_map_with_path,
+    ParamSpec, is_spec, leaf_keys, stack_specs, tree_abstract, tree_axes, tree_flatten,
+    tree_init, tree_map, tree_map_with_path,
 )
+from repro_torch.sharding.context import shard_activation
+from repro_torch.sharding.partition import is_sharded, local
 
 # block kinds whose decode attends to a KV cache
 ATTENTION_KINDS = ("dense", "moe", "mla", "shared_attn", "dec")
@@ -156,6 +158,16 @@ def init_params(cfg: ModelConfig, key, device="cuda"):
     return tree_init(build_specs(cfg), key, device)
 
 
+def abstract_params(cfg: ModelConfig):
+    """The param tree as ``meta`` tensors (shapes and dtypes, no storage)."""
+    return tree_abstract(build_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    """The param tree's logical axes, a tuple of names per leaf."""
+    return tree_axes(build_specs(cfg))
+
+
 def param_keys(cfg: ModelConfig, key) -> Dict[tuple, torch.Tensor]:
     """Each parameter's path -> the key its leaf is drawn from."""
     return leaf_keys(build_specs(cfg), key)
@@ -219,8 +231,9 @@ def _block_cache(kind: str, cfg: ModelConfig, B: int, S: int, dtype, device, lea
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16, device="cuda"):
     """Zero caches for ``B`` rows of ``S`` positions: the trunk's stacked over
     its layers (sliding-window layers hold a ring of ``window``), the tail's
-    unstacked. Recurrent states are float32, other leaves ``dtype``."""
-    dev = resolve_device(device)
+    unstacked. Recurrent states are float32, other leaves ``dtype``.
+    ``device="meta"`` gives the shapes alone (``launch.specs``)."""
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
     dt = as_dtype(dtype)
     R = cfg.layout_repeat
     cache = {"trunk": {f"{i}_{k}": _block_cache(k, cfg, B, S, dt, dev, (R,))
@@ -229,6 +242,35 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16, device="c
         cache["tail"] = {f"{i}_{k}": _block_cache(k, cfg, B, S, dt, dev)
                          for i, k in enumerate(cfg.layout_tail)}
     return cache
+
+
+def cache_axes(cfg: ModelConfig, cache) -> Any:
+    """Logical axes for a cache tree (real or ``meta`` tensors): KV-like
+    leaves shard (batch, kv_seq), recurrent states batch only, inferred
+    structurally as the reference does: a leaf under ``trunk`` has a leading
+    layers axis; Mamba's SSD state (B, heads, N, P) shards (batch, heads),
+    its conv window (B, K-1, C) (batch, ., mlp); mLSTM and sLSTM states
+    shard the batch only."""
+
+    def axes_for(key: str, arr, stacked: bool):
+        lead = ("layers",) if stacked else ()
+        kind = key.split("_", 1)[1]
+        nrest = arr.dim() - len(lead) - 1  # dims after (layers?, batch)
+        if kind == "mamba":
+            if nrest == 3:
+                return lead + ("batch", "heads", None, None)
+            return lead + ("batch", None, "mlp")
+        if kind in ("mlstm", "slstm"):
+            return lead + ("batch",) + (None,) * nrest
+        return lead + ("batch", "kv_seq") + (None,) * (nrest - 1)
+
+    out = {}
+    for section, stacked in (("trunk", True), ("tail", False)):
+        if section not in cache:
+            continue
+        out[section] = {key: tree_map(lambda a, k=key: axes_for(k, a, stacked), blk)
+                        for key, blk in cache[section].items()}
+    return out
 
 
 def _store(cache, new) -> None:
@@ -283,8 +325,15 @@ def _run_block_train(kind, x, p, cfg, positions, shared, enc_out, kv_chunk=512):
 
 
 def _prefill_write(c: torch.Tensor, new: torch.Tensor) -> None:
-    """Write a full prefix into the start of a cache buffer, in place."""
-    c[:, :new.shape[1]] = new.to(c.dtype)
+    """Write a full prefix into the start of a cache buffer, in place (into
+    a DTensor cache: each rank the rows and positions its block holds)."""
+    if not is_sharded(c):
+        c[:, :new.shape[1]] = new.to(c.dtype)
+        return
+    new_l, sl = L.rows_block(new, c)
+    lo, hi = sl[1].start, min(sl[1].stop, new.shape[1])
+    if hi > lo:
+        local(c)[:, :hi - lo] = new_l[:, lo:hi].to(c.dtype)
 
 
 def _mlstm_prefill(h, p, cfg, cache):
@@ -504,7 +553,8 @@ def _inputs(params, cfg: ModelConfig, tokens, embeds, frames):
 def _logits(x, params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return L.unembed(x, params["embed"])
-    return torch.matmul(x, params["head"]["w"].to(x.dtype))
+    logits = torch.matmul(x, params["head"]["w"].to(x.dtype))
+    return shard_activation(logits, ("batch", "seq", "vocab")) if x.dim() == 3 else logits
 
 
 def _increment(x, x0):
@@ -540,6 +590,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos, cache,
     written in place. Returns ``(logits (B, vocab), cache[, trunk increment
     (B, d)])``."""
     x0 = L.embed(token, params["embed"], as_dtype(cfg.dtype))  # (B, d)
+    x0 = shard_activation(x0, ("batch", "embed"))
     x = _run_trunk(x0, params, cfg, "decode", cache=cache, pos=pos)
     logits = _logits(L.rmsnorm(x, params["final_norm"], cfg.norm_eps), params, cfg)
+    logits = shard_activation(logits, ("batch", "vocab"))
     return (logits, cache, _increment(x, x0)) if increment else (logits, cache)

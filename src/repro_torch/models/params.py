@@ -93,6 +93,19 @@ def tree_map(fn: Callable, tree, is_leaf: Callable[[Any], bool] = lambda x: Fals
     return tree_map_with_path(lambda _, leaf: fn(leaf), tree, is_leaf)
 
 
+def tree_abstract(specs) -> Any:
+    """Spec tree -> tensors on the ``meta`` device with each spec's shape and
+    dtype (the reference's ``ShapeDtypeStruct`` tree: nothing allocated)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                    specs, is_spec)
+
+
+def tree_axes(specs) -> Any:
+    """Spec tree -> logical-axes tree (the same structure, a tuple of axis
+    names at each leaf)."""
+    return tree_map(lambda s: s.axes, specs, is_spec)
+
+
 def draw_normal(key, n: int, device, offset: int = 0) -> torch.Tensor:
     """Flat elements ``[offset, offset + n)`` of ``jax.random.normal(key,
     (N,))`` for any N >= offset + n, in chunks of :data:`DRAW_CHUNK`."""

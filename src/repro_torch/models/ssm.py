@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _proj
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.context import shard_activation
 
 F32 = torch.float32
 
@@ -203,7 +204,7 @@ def _mamba_run(x, p, cfg, h0, conv_state, chunk):
     y = y * F.silu(z)
     y = _rms(y, cfg.norm_eps, dt_) * p["norm"].to(dt_)
     out = torch.matmul(y, p["wout"].to(dt_))
-    return out, h_fin, new_conv
+    return shard_activation(out, ("batch", "seq", "embed")), h_fin, new_conv
 
 
 def mamba_decode(x: torch.Tensor, p: Dict, cfg, state) -> Tuple[torch.Tensor, Tuple]:

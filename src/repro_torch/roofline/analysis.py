@@ -59,7 +59,14 @@ H100_SXM = MachineProfile("h100-sxm", peak_flops=1979e12, hbm_bw=3.35e12,
 # order of machine, not a calibration of one host).
 CPU_HOST = MachineProfile("cpu-host", peak_flops=1e11, hbm_bw=2e10, ici_bw=1e10)
 
-PROFILES: Dict[str, MachineProfile] = {p.name: p for p in (H100_SXM, CPU_HOST)}
+# The same card against its dense bf16 tensor-core rate (989 TFLOP/s), the
+# rate an LM's products run at (``lm_mfu``); the LM rows of the dry run are
+# priced against it.
+H100_SXM_BF16 = MachineProfile("h100-sxm-bf16", peak_flops=989e12, hbm_bw=3.35e12,
+                               ici_bw=450e9)
+
+PROFILES: Dict[str, MachineProfile] = {p.name: p for p in (H100_SXM, H100_SXM_BF16,
+                                                           CPU_HOST)}
 
 # The H100 SXM's other units (data sheet, 700 W): float32 outside the
 # tensor cores, used for the STDP and WTA kernels' compares and selects; and
@@ -537,6 +544,16 @@ def lm_train_work(cfg, opt_cfg, batch: int, seq: int) -> Dict[str, float]:
     return {"ops": float(ops), "bytes": float(nbytes), "products_ms": products_ms,
             "optimizer_ms": optimizer_ms, "bound_ms": products_ms + optimizer_ms,
             "model_flops": float(6 * (n - embed) * tokens)}
+
+
+def lm_active_params(cfg) -> int:
+    """Weights one token reads, from the spec tree
+    (``models.model.param_count``): all of them but the experts an MoE token
+    does not visit (``n_experts - experts_per_token`` of each MoE layer's
+    three expert matrices)."""
+    idle = (cfg.layer_kinds.count("moe") * (cfg.n_experts - cfg.experts_per_token)
+            * 3 * cfg.d_model * cfg.d_ff)
+    return lm_model.param_count(cfg) - idle
 
 
 def lm_mfu(model_flops: float, step_s: float) -> float:

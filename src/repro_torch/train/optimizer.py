@@ -24,6 +24,13 @@ keep the reference's float32 order, one rounded op at a time; the scalars
 the reference's order, never Python doubles. Reductions (norms, means) sum
 in torch's order, so results agree with the reference within a few float32
 ulps, not bit for bit.
+
+On a mesh the leaves are DTensors, each grad on its param's placements
+(``train.train_step``), and the moments placed by ``train_step.state_axes``.
+The elementwise updates then run on each rank's block (``partition.local``),
+in place; what reduces over a leaf (the global norm, the compression
+scale, Adafactor's row and column means and its update RMS) is made whole
+over the shards first, so every rank applies the same scalars.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.params import tree_flatten, tree_map
+from repro_torch.sharding.partition import gather_tensor, is_sharded, local
 
 F32 = torch.float32
 
@@ -94,7 +102,7 @@ def global_norm(tree) -> torch.Tensor:
     summed in the reference's order; a 0-dim tensor on the leaves' device."""
     total = 0
     for leaf in _leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(F32)))
+        total = total + gather_tensor(torch.sum(torch.square(leaf.to(F32))))
     return torch.sqrt(total)
 
 
@@ -106,7 +114,7 @@ def clip_by_global_norm(tree, max_norm: float):
         norm.cpu(), _f32(1e-9))))
     if scale != 1.0:               # a multiply by 1 changes no bit
         for leaf in _leaves(tree):
-            leaf.mul_(scale)
+            local(leaf).mul_(scale)
     return tree, norm
 
 
@@ -129,8 +137,10 @@ def compress_decompress(grads, residual):
             raise ValueError(f"residual leaf {rpath} does not match grad {path}")
         if g.dtype != F32:
             raise TypeError(f"{path}: grads are float32, got {g.dtype}")
-        x = r.add_(g)                                  # g + r
-        peak = torch.maximum(x.amax(), -x.amin())      # max |x|, no temporary
+        x = local(r).add_(local(g))                    # g + r
+        # max |x|, no temporary; over every shard of a sharded leaf
+        peak = torch.maximum(gather_tensor(r.amax()), -gather_tensor(r.amin()))
+        g = local(g)
         scale = torch.clamp_min(peak, 1e-9) / _divisor(_f32(127.0), x.device)
         q = torch.round(x / scale).clamp_(-127, 127)   # the int8 values, exactly
         torch.mul(q, scale, out=g)                     # deq
@@ -166,6 +176,7 @@ def adamw_update(grads, state, params, cfg: OptConfig):
                  tree_flatten(state["v"]))
     divisors = {}
     for (_, p), (_, g), (_, m), (_, v) in leaves:
+        p, g, m, v = local(p), local(g), local(m), local(v)
         if p.device not in divisors:
             divisors[p.device] = (_divisor(c1, p.device), _divisor(c2, p.device))
         c1_d, c2_d = divisors[p.device]
@@ -217,6 +228,9 @@ def adafactor_update(grads, state, params, cfg: OptConfig):
     leaves = zip(tree_flatten(params), tree_flatten(grads), tree_flatten(state["vr"]),
                  tree_flatten(state["vc"]))
     for (_, p), (_, g), (_, vr), (_, vc) in leaves:
+        if is_sharded(p):
+            _adafactor_sharded(p, g, vr, vc, b2, one_b2, wd, lr)
+            continue
         g = g.to(F32)
         g2 = torch.square(g).add_(1e-30)
         if _factored(p.shape):
@@ -235,6 +249,35 @@ def adafactor_update(grads, state, params, cfg: OptConfig):
         p.sub_(step)
         del g2, step
     return params, state
+
+
+def _adafactor_sharded(p, g, vr, vc, b2, one_b2, wd, lr) -> None:
+    """One Adafactor leaf update on DTensors, in place on the blocks of
+    ``p``, ``vr`` and ``vc``: the same ops in the same order as the plain
+    update, with the means over the whole leaf (DTensor reductions,
+    brought to the moment's placements) and the update's RMS made whole."""
+    from torch.distributed.tensor import DTensor
+
+    def to(x, like):
+        return local(x.redistribute(like.device_mesh, like.placements))
+
+    g = g.to(F32)
+    g2 = torch.square(g) + 1e-30
+    if _factored(p.shape):
+        local(vr).mul_(b2).add_(to(g2.mean(dim=-1), vr).mul_(one_b2))
+        local(vc).mul_(b2).add_(to(g2.mean(dim=-2), vc).mul_(one_b2))
+        den = torch.clamp_min(vr.mean(dim=-1, keepdim=True).unsqueeze(-1), 1e-30)
+        u = to((vr.unsqueeze(-1) * vc.unsqueeze(-2)) / den, p)
+    else:
+        # a 1-D leaf's vr has the leaf's shape but no axes: replicated
+        local(vr).mul_(b2).add_(to(g2, vr).mul_(one_b2))
+        u = to(vr, p).clone()
+    step = u.add_(1e-30).rsqrt_().mul_(local(g))
+    whole = DTensor.from_local(step, p.device_mesh, p.placements, run_check=False)
+    rms = torch.sqrt(gather_tensor(torch.mean(torch.square(whole))) + 1e-30)
+    step.div_(torch.clamp_min(rms, 1.0))
+    step.add_(torch.mul(local(p), wd)).mul_(lr)
+    local(p).sub_(step)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@
 * Failure handling: a step that raises, or whose loss is not finite, is
   restored from the last checkpoint and replayed, up to ``max_restarts``;
   the token stream is a function of the step, so the replay is exact. A
-  step that raises before the first checkpoint ends the run: a step may
-  update the state in place, so the state it leaves may be half updated,
-  and nothing older is kept to replay from (the reference, whose states
-  are immutable, replays from the state before the step). A non-finite
-  loss before the first checkpoint is replayed from the state as it is:
+  step may update the state in place, so a step that raises before the
+  first checkpoint may leave it half updated, and no copy of the state
+  before it is kept (the reference, whose states are immutable, replays
+  from that state). With ``init_state`` (a callable that draws the step-0
+  state again, bit for bit, on the same shardings) the trainer then
+  rebuilds the step-0 state and replays from step 0, which ends where the
+  reference ends; without it such a step ends the run. A non-finite loss
+  before the first checkpoint is replayed from the state as it is:
   ``train.train_step`` applies no update when the loss is not finite. A
   CUDA error that poisons the process's context (an illegal address, a
   device-side assert) cannot be replayed in process: every later call
@@ -23,7 +26,10 @@
 The state is a nested dict of tensors. A step function may return a new
 state or update the given one in place (``train.train_step``); a restore
 copies the checkpoint into the state's own tensors, so the state keeps its
-devices and its memory.
+devices and its memory. On a mesh the state's leaves are DTensors and
+``shardings`` their ``NamedSharding`` tree, as in the reference: every
+rank runs the loop, a checkpoint is a collective that rank 0 writes, and a
+restore reads each rank's blocks alone.
 """
 from __future__ import annotations
 
@@ -37,10 +43,12 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer, LeafSpec
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models.params import tree_flatten, tree_map
+from repro_torch.sharding.partition import local
 
 
 @dataclasses.dataclass
@@ -61,27 +69,39 @@ def _leaf_spec(t: torch.Tensor) -> LeafSpec:
 
 
 def load_into(state, tree) -> None:
-    """Copy a restored numpy tree into the state's tensors, in place; the
-    dtypes must agree."""
+    """Copy a restored tree (numpy arrays, or DTensors on the state's
+    placements) into the state's tensors, in place; the dtypes must
+    agree."""
     for (path, t), (_, a) in zip(tree_flatten(state), tree_flatten(tree)):
+        if isinstance(a, torch.Tensor):
+            if a.dtype != t.dtype:
+                raise TypeError(f"{path}: checkpoint {a.dtype} != state {t.dtype}")
+            local(t).copy_(local(a))
+            continue
         if a.dtype != _leaf_spec(t).dtype:
             raise TypeError(f"{path}: checkpoint {a.dtype} != state {t.dtype}")
         t.copy_(torch.as_tensor(a))
 
 
 class Trainer:
-    def __init__(self, step_fn: Callable, state, stream: TokenStream, cfg: TrainerConfig):
+    def __init__(self, step_fn: Callable, state, stream: TokenStream, cfg: TrainerConfig,
+                 shardings=None, init_state: Optional[Callable[[], Any]] = None):
         self.step_fn = step_fn
         self.state = state
         self.stream = stream
         self.cfg = cfg
+        self.shardings = shardings
+        self.init_state = init_state
+        # on a mesh only rank 0 prints and writes the metrics
+        self.is_main = shardings is None or dist.get_rank() == 0
         self.ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.step = 0
         self.restarts = 0
         self.stragglers = 0
         self.step_times: list = []
         self._preempted = False
-        self._metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path else None
+        self._metrics_f = (open(cfg.metrics_path, "a")
+                           if cfg.metrics_path and self.is_main else None)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -95,7 +115,8 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
-        tree, extra = self.ckpt.restore(latest, tree_map(_leaf_spec, self.state))
+        tree, extra = self.ckpt.restore(latest, tree_map(_leaf_spec, self.state),
+                                        self.shardings)
         load_into(self.state, tree)
         self.step = int(extra.get("data_step", latest))
         return True
@@ -111,7 +132,7 @@ class Trainer:
         if self._metrics_f:
             self._metrics_f.write(json.dumps(rec) + "\n")
             self._metrics_f.flush()
-        if self.step % self.cfg.log_every == 0:
+        if self.step % self.cfg.log_every == 0 and self.is_main:
             print(f"[trainer] step={self.step} " +
                   " ".join(f"{k}={v:.4g}" for k, v in rec.items() if k != "step"),
                   flush=True)
@@ -152,9 +173,17 @@ class Trainer:
                 if self.ckpt.latest_step() is None:
                     # the step may have updated the state in place before it
                     # raised, and no checkpoint holds the state before it
-                    print(f"[trainer] step {self.step} failed ({e}) before the first "
-                          f"checkpoint: no untouched state to replay from", flush=True)
-                    raise
+                    if self.init_state is None:
+                        print(f"[trainer] step {self.step} failed ({e}) before the "
+                              f"first checkpoint: no untouched state to replay from",
+                              flush=True)
+                        raise
+                    self._restart(e)
+                    self.state = None   # free it before the new draw
+                    self.state, self.step = self.init_state(), 0
+                    print("[trainer] no checkpoint yet: the step-0 state drawn again, "
+                          "replaying from step 0", flush=True)
+                    continue
                 self._restart(e)
                 continue
             if not np.isfinite(loss):

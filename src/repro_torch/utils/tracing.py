@@ -13,7 +13,10 @@ STDP kernel.
 
 :func:`collectives_recorded` records the collectives ``launch.mesh`` issues
 (kind, dtype, result shape, group size), which ``roofline.analysis``
-prices with the reference's ring model.
+prices with the reference's ring model. :func:`dtensor_collectives` adds
+the collectives DTensor issues for the sharded LM steps (its
+redistributions' functional collectives), through a
+``CommDebugMode``, which also counts them by op.
 """
 from __future__ import annotations
 
@@ -94,3 +97,41 @@ def collectives_recorded() -> Iterator[List[CollectiveEntry]]:
         entries, _RECORDER = _RECORDER, outer
         if outer is not None:
             outer.extend(entries)
+
+
+# DTensor's functional collectives, by the reference's HLO names
+_FUNCTIONAL_KINDS = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+                     "reduce_scatter_tensor": "reduce-scatter",
+                     "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
+
+
+def _group_size(func_name: str, args) -> int:
+    if func_name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        return int(args[-2])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(args[-1]).size()
+
+
+@contextlib.contextmanager
+def dtensor_collectives():
+    """Inside the block, every functional collective DTensor issues (an
+    all-gather, all-reduce, reduce-scatter, all-to-all or broadcast of a
+    redistribution) is noted by :func:`record_collective` with its result's
+    type and shape and its group's size. Yields the ``CommDebugMode`` that
+    watched them (``get_comm_counts()``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class _Mode(CommDebugMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.namespace == "_c10d_functional":
+                name = func.overloadpacket.__name__
+                kind = _FUNCTIONAL_KINDS.get(name)
+                if kind is not None:
+                    record_collective(kind, out.dtype, tuple(out.shape),
+                                      _group_size(name, args))
+            return out
+
+    with _Mode() as mode:
+        yield mode

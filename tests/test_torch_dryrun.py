@@ -104,16 +104,17 @@ def test_dryrun_writes_the_reference_file_names(tmp_path):
 
 
 def test_dryrun_refusals(capsys):
-    """The production meshes need 256 and 512 cards; the column-parallel
-    variant runs on a process mesh (``run_tnn_colpar_cell``, under
-    torchrun); the LM architectures wait for Queue 1 item 6."""
+    """The production meshes need 256 and 512 cards for the TNN cells; the
+    column-parallel variant runs on a process mesh (``run_tnn_colpar_cell``,
+    under torchrun); an arch the registry lacks is refused as unknown (the
+    LM rows are ``tests/test_torch_lm_dryrun.py``'s)."""
     with pytest.raises(ValueError, match="256 cards.*512"):
         t_dryrun.run_tnn_cell("tnn_train_8k", device="cpu", multi_pod=True)
     with pytest.raises(ValueError, match="process mesh"):
         t_dryrun.run_tnn_cell("tnn_train_8k", device="cpu", column_parallel=True)
     with pytest.raises(ValueError, match="learning wave"):
         t_dryrun.run_tnn_cell("tnn_infer_64k", gauss=True, device="cpu")
-    for argv, words in ((["--arch", "llama3-8b"], "item 6"),
+    for argv, words in ((["--arch", "llama3-8b"], "unknown arch"),
                         (["--mesh", "multi"], "256 cards"),
                         (["--mesh", "both"], "512"),
                         (["--colpar"], "torchrun")):

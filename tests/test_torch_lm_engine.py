@@ -205,7 +205,7 @@ def test_launcher_serves_recurrent_archs(arch, capsys):
 
 @pytest.mark.parametrize("argv,reason", [
     (["--arch", "whisper-tiny"], "ROADMAP Queue 3 item 9"),
-    (["--arch", "llama3.2-3b", "--mesh", "2x2"], "ROADMAP Queue 1 item 6(e)")])
+    (["--arch", "llama3.2-3b", "--mesh", "2x2"], "the reference serves an LM unsharded")])
 def test_launcher_refuses(argv, reason, capsys):
     with pytest.raises(SystemExit) as e:
         launch_serve.main(argv + ["--smoke", "--device", "cpu"])

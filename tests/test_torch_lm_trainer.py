@@ -288,12 +288,18 @@ def test_lm_failure_and_nan_step_replay(tmp_path, uninterrupted, monkeypatch):
     _assert_same(uninterrupted[0], _np_state(tr))
 
 
-def test_lm_failure_before_first_checkpoint_stops(tmp_path, monkeypatch):
+def test_lm_failure_before_first_checkpoint_stops(tmp_path, monkeypatch, uninterrupted):
     """The second step raises inside ``adamw_update`` before any checkpoint
     exists: the state is half updated (the count has advanced, some leaves
-    have moved) and nothing older is kept, so the trainer raises instead of
-    replaying on it, restarts left or not, and writes no checkpoint."""
-    tr = _lm(tmp_path, 6)
+    have moved) and nothing older is kept. Without ``init_state`` the
+    trainer stops there: it raises, restarts left or not, and writes no
+    checkpoint. With ``init_state`` (the launcher's: the step-0 state drawn
+    again) it replays from step 0 and ends in the uninterrupted run's state
+    bit for bit, as the reference's trainer, whose states are immutable,
+    ends in its own uninterrupted run's under the same failure: its losses
+    step for step within 1e-3 of the port's (bf16 compute, as the
+    launcher's test holds them), one restart each."""
+    tr = _lm(tmp_path / "stop", 6)
     tr.cfg.max_restarts = 3
     armed = _fail_inside_adamw(monkeypatch, tr)
     orig = tr.step_fn
@@ -309,9 +315,44 @@ def test_lm_failure_before_first_checkpoint_stops(tmp_path, monkeypatch):
         tr.run()
     assert tr.step == 1 and tr.restarts == 0
     assert int(tr.state["opt"]["count"]) == 2 and int(tr.state["step"]) == 1
-    assert Checkpointer(str(tmp_path)).all_steps() == []
-    lines = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    assert Checkpointer(str(tmp_path / "stop")).all_steps() == []
+    lines = [json.loads(l) for l in open(tmp_path / "stop" / "metrics.jsonl")]
     assert [l["step"] for l in lines] == [1]
+
+    # with init_state: the step-0 state drawn again and the run replayed
+    d = tmp_path / "replay"
+    cfg, to = t_smoke(ARCH), TO.OptConfig(**OPT_KW)
+    tr = _lm(d, 6)
+    tr.init_state = lambda: TTS.init_state(cfg, to, t_random.PRNGKey(0), "cpu")
+    armed = _fail_inside_adamw(monkeypatch, tr)
+    orig, calls["n"] = tr.step_fn, 0
+    tr.step_fn = second_fails
+    out = tr.run()
+    assert out == {"final_step": 6, "restarts": 1, "stragglers": out["stragglers"]}
+    assert calls["n"] == 8
+    _assert_same(uninterrupted[0], _np_state(tr))
+    got = [json.loads(l) for l in open(d / "metrics.jsonl")]
+    assert [l["step"] for l in got] == [1, 1, 2, 3, 4, 5, 6]
+
+    # the reference under the same failure: its trainer replays the step
+    jtr = _reference_trainer(tmp_path / "jax", 6)
+    jstep, jcalls = jtr.step_fn, {"n": 0}
+
+    def jfails(state, batch):
+        jcalls["n"] += 1
+        if jcalls["n"] == 2:
+            raise RuntimeError("injected failure")
+        return jstep(state, batch)
+
+    jtr.step_fn = jfails
+    jtr.cfg.metrics_path = str(tmp_path / "jax.jsonl")
+    jtr._metrics_f = open(jtr.cfg.metrics_path, "a")
+    jout = jtr.run()
+    assert jout["final_step"] == 6 and jout["restarts"] == 1
+    want = [json.loads(l) for l in open(tmp_path / "jax.jsonl")]
+    assert [l["step"] for l in want] == [1, 2, 3, 4, 5, 6]
+    for a, b in zip(got[1:], want):
+        assert abs(a["loss"] - b["loss"]) <= 1e-3
 
 
 # -- checkpoints across the two packages -------------------------------------
@@ -393,9 +434,17 @@ def test_launcher_matches_reference_and_resumes(tmp_path, monkeypatch, sigterm_r
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--production-mesh", "single"]])
 def test_launcher_refuses_lm_meshes(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        t_launch.parse_args(["--arch", ARCH, "--smoke", *flags])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 6(e)" in capsys.readouterr().err
+    """``--mesh DxM`` with an LM is taken (it trains under torchrun:
+    ``tests/test_torch_lm_mesh.py``); ``--production-mesh`` with an LM exits
+    2 naming the cards its meshes need."""
+    if flags[0] == "--mesh":
+        args = t_launch.parse_args(["--arch", ARCH, "--smoke", *flags])
+        assert args.mesh == "2x2" and args.arch == ARCH
+    else:
+        with pytest.raises(SystemExit) as e:
+            t_launch.parse_args(["--arch", ARCH, "--smoke", *flags])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "256 cards" in err and "--mesh DxM" in err
     assert t_launch.parse_args([]).arch == "tnn-mnist"
     assert t_launch.parse_args(["--mesh", "2x2"]).mesh == "2x2"   # tnn-mnist keeps it

@@ -398,7 +398,7 @@ def test_parse_mesh_refuses_as_the_reference(spec):
     assert str(got.value) == str(want.value)
 
 
-def test_refusals():
+def test_refusals(capsys):
     assert t_mesh.parse_mesh(" 2X2 ") == j_mesh.parse_mesh(" 2X2 ") == (2, 2)
     fake = types.SimpleNamespace(n_data=2, n_model=2, data_index=0, model_index=0,
                                  device=torch.device("cpu"))
@@ -423,8 +423,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="must be >= 1"):
         t_mesh.make_mesh_2d(0, 2, device="cpu")
     assert t_serve.resolve_slots(7, 4) == 8 and t_serve.resolve_slots(8, 4) == 8
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit) as e:   # the LM half exists; this arch does not
         t_probe.main(["--arch", "llama3-8b"])
+    assert e.value.code == 2 and "unknown arch" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

@@ -180,3 +180,226 @@ def suite(ref_path, work_dir):
             res["restored"] = _restored(mesh, os.path.join(work_dir, "ckpt22"))
         out[f"{d}x{m}"] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM sharding: the DTensor train and serve steps on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b")
+LM_B, LM_S, LM_KV_CHUNK = 4, 16, 8
+LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+LM_CACHE = 24
+PIPE = dict(R=8, B=16, D=32, n_micro=4)
+
+
+def lm_cfg(arch, mesh_shape):
+    """The smoke config in float32, tuned to the mesh (``moe_groups`` one a
+    data shard) as the launcher tunes it."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.sharding import partition as PT
+
+    return PT.tuned_config(dataclasses.replace(smoke_config(arch), dtype="float32"),
+                           mesh_shape)
+
+
+def _np_tree(tree):
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding import partition as PT
+
+    return tree_map(lambda t: PT.gather_tensor(t).detach().numpy().copy(), tree)
+
+
+def _lm_train(ref, arch, mesh, work_dir):
+    """Grads at the reference's params and two AdamW steps from them, on
+    DTensors; the state after them; for llama its checkpoint too."""
+    from repro_torch.sharding import partition as PT
+    from repro_torch.sharding.context import use_partitioning
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    c = lm_cfg(arch, mesh)
+    opt_cfg = OPT.OptConfig(**LM_OPT)
+    prof = PT.RunProfile()
+    flat = {k[len(arch) + 8:]: ref[k] for k in ref.files if k.startswith(f"{arch}.params.")}
+    params = _unflatten(flat)
+    state = {"params": params, "opt": OPT.opt_init(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state = TS.shard_state(state, TS.state_shardings(c, opt_cfg, mesh, prof))
+    batches = [{"tokens": ref[f"{arch}.tokens{i}"], "labels": ref[f"{arch}.labels{i}"]}
+               for i in range(2)]
+    loss_fn = TS.make_loss_fn(c, TS.TrainConfig(kv_chunk=LM_KV_CHUNK))
+    with use_partitioning(PT.device_mesh(mesh), PT.act_rules(mesh, prof)):
+        # step 1 by hand (the grads are held too), step 2 by the train step
+        b = TS.shard_batch(TS.device_batch(batches[0], "cpu"), mesh, prof)
+        loss, aux, grads = TS.value_and_grad(loss_fn, state["params"], b)
+        out = {"loss": float(PT.gather_tensor(loss)), "grads": _np_tree(grads)}
+        if arch == "llama3.2-3b":
+            out["adafactor"] = _adafactor(c, state["params"], grads, mesh, prof)
+        _, _, gnorm = OPT.opt_update(grads, state["opt"], state["params"], opt_cfg)
+        state["step"].add_(1)
+        del grads
+    out["metrics"] = [{"loss": float(PT.gather_tensor(aux["loss"])), "loss_total": out["loss"],
+                       "grad_norm": float(gnorm)}]
+    step = TS.make_train_step(c, opt_cfg, TS.TrainConfig(kv_chunk=LM_KV_CHUNK),
+                              mesh=mesh, prof=prof)
+    state, m = step(state, batches[1])
+    out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["state"] = _np_tree(state)
+    if arch == "llama3.2-3b":
+        ckpt = Checkpointer(os.path.join(work_dir, "lm_ckpt"))
+        ckpt.save(2, state, extra={"data_step": 2})
+        tree, extra = ckpt.restore(2, _np_tree(state),
+                                   TS.state_shardings(c, opt_cfg, mesh, prof))
+        from repro_torch.models.params import tree_flatten
+
+        out["restored_blocks_equal"] = all(
+            torch.equal(PT.local(a), PT.local(b)) if PT.is_sharded(a)
+            else np.array_equal(np.asarray(a), b.numpy())
+            for (_, a), (_, b) in zip(tree_flatten(tree), tree_flatten(state)))
+        out["restored_extra"] = extra
+    return out
+
+
+def _adafactor(c, params, grads, mesh, prof):
+    """One Adafactor update with int8 compression on the sharded params and
+    grads, and the same update unmeshed on their gathered copies: the
+    largest difference of any leaf of the state, over its largest value."""
+    from repro_torch.models.params import tree_flatten, tree_map
+    from repro_torch.sharding import partition as PT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    opt_cfg = OPT.OptConfig(name="adafactor", compress_grads=True, **LM_OPT)
+    whole_p = tree_map(lambda t: PT.gather_tensor(t).clone(), params)
+    whole_g = tree_map(lambda t: PT.gather_tensor(t).clone(), grads)
+    state = {"params": tree_map(lambda t: t.clone(), whole_p),
+             "opt": OPT.opt_init(whole_p, opt_cfg), "step": torch.zeros((), dtype=torch.int32)}
+    # a copy: the 0-dim counters are kept, not copied, by shard_state
+    sharded = TS.shard_state(tree_map(lambda t: t.clone(), state),
+                             TS.state_shardings(c, opt_cfg, mesh, prof))
+    sh_g = TS.shard_state({"params": whole_g}, TS.state_shardings(c, opt_cfg, mesh, prof))
+    OPT.opt_update(sh_g["params"], sharded["opt"], sharded["params"], opt_cfg)
+    OPT.opt_update(whole_g, state["opt"], state["params"], opt_cfg)
+    err = 0.0
+    for (_, a), (_, b) in zip(tree_flatten(sharded), tree_flatten(state)):
+        a = PT.gather_tensor(a).double()
+        err = max(err, float((a - b.double()).abs().max()
+                             / b.double().abs().max().clamp_min(1e-30)))
+    return err
+
+
+def _unflatten(flat):
+    """``{"a/b/c": array}`` -> nested dicts of float32 tensors."""
+    tree = {}
+    for key, a in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = torch.from_numpy(np.array(a))
+    return tree
+
+
+def _lm_serve(ref, mesh):
+    """A sharded prefill and three decode ticks of llama (f32 cache), fed
+    the reference's greedy tokens."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import partition as PT
+    from repro_torch.train import train_step as TS
+
+    arch = "llama3.2-3b"
+    c = lm_cfg(arch, mesh)
+    prof = PT.RunProfile()
+    flat = {k[len(arch) + 8:]: ref[k] for k in ref.files if k.startswith(f"{arch}.params.")}
+    params = PT.shard_tree(_unflatten(flat), TS.param_shardings(c, mesh, prof))
+    cache = M.init_cache(c, LM_B, LM_CACHE, torch.float32, "cpu")
+    cache = PT.shard_tree(cache, TS.cache_shardings(c, cache, mesh, prof))
+    prefill, decode = TS.make_serve_steps(c, kv_chunk=LM_KV_CHUNK, mesh=mesh, prof=prof)
+    tokens = torch.from_numpy(ref["serve.tokens"]).long()
+    logits = []
+    with torch.no_grad():
+        lg, _ = prefill(params, tokens, cache)
+        logits.append(PT.gather_tensor(lg).numpy())
+        for t in range(3):
+            tok = torch.from_numpy(ref[f"serve.next{t}"]).long()
+            lg, _ = decode(params, tok, tokens.shape[1] + t, cache)
+            logits.append(PT.gather_tensor(lg).numpy())
+    return {"logits": np.stack(logits)}
+
+
+def _pipeline(ref):
+    """``pipeline_apply`` over the 4 ranks as stages: forward, and the
+    grads of sum(out^2) with respect to this stage's layers; and the same
+    layers run one after another in this process."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.pipeline import pipeline_apply
+
+    P = dist.get_world_size()
+    s = dist.get_rank()
+    per = PIPE["R"] // P
+    whole = {k: torch.from_numpy(ref[f"pipe.{k}"]) for k in ("w", "b")}
+    params = {k: v[s * per:(s + 1) * per].clone().requires_grad_() for k, v in whole.items()}
+    x = torch.from_numpy(ref["pipe.x"])
+
+    def layer(pr, h):
+        return torch.tanh(h @ pr["w"] + pr["b"])
+
+    out = pipeline_apply(layer, params, x, None, PIPE["n_micro"])
+    (out ** 2).sum().backward()
+    seq_p = {k: v.clone().requires_grad_() for k, v in whole.items()}
+    h = x
+    for r in range(PIPE["R"]):
+        h = layer({k: v[r] for k, v in seq_p.items()}, h)
+    (h ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "grads": {k: v.grad.numpy() for k, v in params.items()},
+            "seq_out": h.detach().numpy(),
+            "seq_grads": {k: v.grad[s * per:(s + 1) * per].numpy() for k, v in seq_p.items()}}
+
+
+def _gloo_cuda_check(mesh):
+    """DTensor's collectives (all-gather, reduce-scatter, all-reduce,
+    shard-to-shard) with gloo's own kernels, then with
+    ``sharding.gloo_cuda``'s registered for the CPU key: equal bit for bit.
+    Installed last: the rest of the suite runs on gloo's own."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.sharding import gloo_cuda
+    from repro_torch.sharding import partition as PT
+
+    dm = PT.device_mesh(mesh)
+    g = torch.Generator().manual_seed(11 + torch.distributed.get_rank())
+    x = torch.randn(8, 6, generator=g)
+
+    def run():
+        from torch.distributed.tensor import DTensor
+
+        t = DTensor.from_local(x, dm, (Shard(0), Shard(1)), run_check=False)
+        p = DTensor.from_local(x, dm, (Partial(), Partial()), run_check=False)
+        return [t.full_tensor(), t.redistribute(dm, (Shard(1), Shard(0))).to_local(),
+                p.redistribute(dm, (Shard(0), Replicate())).to_local(),
+                p.full_tensor()]
+
+    want = run()
+    gloo_cuda.install("CPU")
+    return all(torch.equal(a, b) for a, b in zip(want, run()))
+
+
+def lm_suite(ref_path, work_dir):
+    """The LM mesh tests' rank body: one start of 4 ranks on a 2x2 mesh."""
+    ref = np.load(ref_path)
+    mesh = make_mesh_2d(2, 2, device="cpu", backend="gloo")
+    out = {arch: _lm_train(ref, arch, mesh, work_dir) for arch in LM_ARCHS}
+    out["serve"] = _lm_serve(ref, mesh)
+    out["pipeline"] = _pipeline(ref)
+    d = os.path.join(work_dir, "lm_launch")
+    args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "4", "--seq", "16",
+            "--ckpt-dir", d, "--device", "cpu"] + MESH_ARGS
+    t_train.main(args + ["--steps", "1"])
+    tr = t_train.main(args + ["--steps", "2"])["trainer"]
+    out["launch"] = {"state": _np_tree(tr.state), "step": tr.step}
+    out["gloo_cuda_equal"] = _gloo_cuda_check(mesh)
+    return out
