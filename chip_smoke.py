@@ -47,11 +47,11 @@ Phases, each of which fails the run on error:
             table and the same class ids (a differing id is allowed only on a
             near tie, a row whose top-two vote margin is below the largest
             card-CPU sum difference, and is printed).
-8. online   learning while serving at theta = (12, 3): 1,024 requests, 64
+8. online   learning while serving at theta = (12, 3): 512 requests, 64
             slots, K = 4 superbatches, a hot swap every 4 learning waves;
             pallas (card), fused (card), the CPU and fused lock-step at K = 1
             give every uid the same class id and version, one shadow state
-            (equal to 16 train steps on the same volleys) and the same
+            (equal to 8 train steps on the same volleys) and the same
             published vote tables; launches as the code says; a traced pass
             per backend.
 9. ckpt     train A's wave-16 checkpoint served online for waves 16-31 ends
@@ -141,7 +141,8 @@ Phases, each of which fails the run on error:
             rows as two micro-steps, its ms and its own peak. No TNN kernel
             may launch.
 17. lm_mesh LM sharding (slice 12; no hand-written kernel) on llama3.2-3b at
-            full width cut to 2 layers (989,346,816 parameters), float32,
+            full width cut to LM_MESH_LAYERS = 2 layers (989,346,816
+            parameters), float32,
             AdamW: one process on the card takes two steps at B x S = 4 x
             128 (timed, one more traced) and serves its end params (a
             64-token prefill into a float32 cache and 4 greedy decode
@@ -159,9 +160,35 @@ Phases, each of which fails the run on error:
             probe's LM table of the train step, and pipeline_apply over the
             4 ranks as stages against its sequential form. No TNN kernel may
             launch.
-18. report  one JSON line with the serve, train, slice-6 to slice-12 and
-            shape numbers, one with every kernel's numbers, the card's
-            nvidia-smi line, then the result line.
+18. report  one JSON line with the serve, train, slice-6 to slice-13 and
+            shape numbers and every phase's seconds, one with every
+            kernel's numbers, the card's nvidia-smi line, then the result
+            line.
+
+Slice 13 adds, after the wave kernel's checks, the autotune phase: the
+checked-in tuned cache (src/repro_torch/kernels/tuned_blocks.json) passes
+``--check``; at each of its seven default geometries every (rows, warps)
+launch candidate's forward output is bit-equal to the static launch's and
+that to the plain version, and the static and cached launches are timed
+in turns; serving at 625 sites and 8 slots launches every forward wave
+with the cached extents (a spy on the launch arguments), and again with
+an altered copy of the cache, with the same class ids. To lm it adds
+qwen1.5-4b and mistral-nemo-12b at full size served and held, their draw
+windows (qwen's QKV bias, mistral's (5,120, 32, 128) query projection)
+and their 2-layer cuts against the CPU; grok-1-314b cut to 2 of 64
+layers (capacity factor E / k) served, held in float32 (in bf16 a router
+near-tie flips between the batched and one-row runs), its draw windows
+(the (8, 6,144, 32,768) expert input). To lm_mesh it adds the smoke train
+steps of minicpm3-4b, xlstm-125m, whisper-tiny (frames) and
+internvl2-76b (embeds) at 2x2, held to one process on the card (zamba2-7b
+is refused meshed, ROADMAP Queue 3 item 16), their step-1 grads and
+their params after two steps, each with its worst leaf named. So that the
+run stays under 1,200 s, slice 13 cuts two earlier LM checks in depth:
+minicpm3-4b is served at 16 of its 62 layers, zamba2-7b at 4 of its 13
+units and the tail (27 of 81 layers). The forward waves that the TNN
+phases launch are counted by geometry key: each took the cache's extents
+where it has an entry (the 64-slot serve must have one). A phase's
+seconds print as the next starts.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -208,7 +235,7 @@ from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec  # noqa: E402
 from repro_torch.data.mnist_like import digits  # noqa: E402
 from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, padding, stdp_update, threefry, tnn_column, tnn_wave, wta,
+    _build, autotune, padding, stdp_update, threefry, tnn_column, tnn_wave, wta,
 )
 from repro_torch.kernels.padding import network_plan  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -223,13 +250,14 @@ from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.configs import smoke_config as lm_smoke_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
-    draw_normal as lm_draw_normal, is_spec as lm_is_spec, tree_flatten as lm_tree_flatten,
-    tree_map as lm_tree_map,
+    draw_normal as lm_draw_normal, is_spec as lm_is_spec, materialize as lm_materialize,
+    tree_flatten as lm_tree_flatten, tree_map as lm_tree_map,
 )
 from repro_torch.serve.engine import Engine as LMEngine  # noqa: E402
 from repro_torch.serve.tnn_engine import ClassifyRequest, TNNEngine  # noqa: E402
 from repro_torch.roofline import analysis as RL  # noqa: E402
 from repro_torch.sharding import partition as PT  # noqa: E402
+from repro_torch.sharding.context import use_partitioning  # noqa: E402
 from repro_torch.train import optimizer as lm_opt  # noqa: E402
 from repro_torch.train import train_step as lm_ts  # noqa: E402
 from repro_torch.train.tnn_trainer import WaveStream  # noqa: E402
@@ -271,8 +299,24 @@ def sass_mix(name: str, kernel: str) -> dict:
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
+PHASES = []   # (short name, start time) of each phase, in order
+
+
 def phase(name: str) -> None:
+    """Start a phase: print the one before's seconds, then the name."""
+    now = time.perf_counter()
+    if PHASES:
+        print(f"  [{PHASES[-1][0]}: {now - PHASES[-1][1]:.1f} s]", flush=True)
+    short = re.split(r"[:(]", name)[0].strip()
+    n = sum(p == short or p.startswith(short + " #") for p, _ in PHASES)
+    PHASES.append((f"{short} #{n + 1}" if n else short, now))
     print(f"== {name}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Every phase's seconds so far (the running one to now)."""
+    ends = [t for _, t in PHASES[1:]] + [time.perf_counter()]
+    return {name: round(end - t, 1) for (name, t), end in zip(PHASES, ends)}
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -418,6 +462,183 @@ def measure(cfg, dev):
             work = work + RL.learn_epilogue_work(
                 plan.n_cols, B, [p_ * q_ for p_, q_ in zip(plan.ps, plan.qs)])
         out[half] = _timing(half, B, ms, plain_ms, readings, work)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The wave kernel's tuned launch geometry (port slice 13)
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_SERVE = ["--arch", "tnn-mnist", "--sites", "625", "--slots", "8",
+                  "--requests", "64", "--impl", "fused", "--device", "cuda"]
+
+
+def _wave_plain_chunked(x, params, plan):
+    """``wave_forward_plain`` in site chunks of CELL_CHUNK (a 65,536-row
+    batch's planes do not fit whole), joined along the sites."""
+    outs = [tnn_wave.wave_forward_plain(x[:, c0:c1], [w[c0:c1] for w in params], plan=plan)
+            for c0, c1 in _plain_chunks(x.shape[1])]
+    return [torch.cat([o[l] for o in outs], dim=1).to(SPIKE_DTYPE)
+            for l in range(plan.n_layers)]
+
+
+def autotune_geometry(cfg, B: int, seed: int, dev) -> dict:
+    """One default geometry: the static launch against the plain version,
+    every candidate launch against the static one, bit for bit; then the
+    static and the cached launches timed in turns (static, tuned, tuned,
+    static; device ms a wave by ``autotune.device_ms``, best of each pair)."""
+    key = padding.plan_geometry_key(cfg, B)
+    T_ = cfg.layers[0].column.wave.T
+    g = torch.Generator(device=dev).manual_seed(seed)   # no uniforms: 126 GB at B = 65,536
+    x = torch.randint(0, T_ + 1, (B, cfg.layers[0].n_cols, cfg.layers[0].column.p),
+                      generator=g, device=dev, dtype=torch.uint8)
+    ws = [torch.randint(0, l.column.wave.w_max + 1, (l.n_cols, l.column.p, l.column.q),
+                        generator=g, device=dev, dtype=torch.int8) for l in cfg.layers]
+    static = network_plan(cfg, B, launch=padding.STATIC)
+    want = tnn_wave.wave_forward(x, ws, plan=static)
+    err = max(_max_err(a, b) for a, b in zip(want, _wave_plain_chunked(x, ws, static)))
+    for cand in autotune.candidates(T_, B):
+        got = tnn_wave.wave_forward(x, ws, plan=network_plan(cfg, B, launch=cand))
+        err = max(err, max(_max_err(a, b) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    _require_exact(f"autotune {key}", err)
+    tuned = network_plan(cfg, B)
+    cached = autotune.lookup(key)
+    if cached is None or tuned.launch != cached:
+        raise AssertionError(f"{key}: the plan carries {tuned.launch}, the cache {cached}")
+    one = autotune.device_ms(lambda: tnn_wave.wave_forward(x, ws, plan=static), 1)
+    iters = max(5, min(200, int(2.0 / max(one, 1e-3))))
+    reads = [autotune.device_ms(lambda p=p: tnn_wave.wave_forward(x, ws, plan=p), iters)
+             for p in (static, tuned, tuned, static)]
+    static_ms, tuned_ms = min(reads[0], reads[3]), min(reads[1], reads[2])
+    print(f"  {key}: {len(autotune.candidates(T_, B))} candidates and the static launch "
+          f"bit-equal to the plain version; cached rows={cached[0]} warps={cached[1]}: "
+          f"static {static_ms:.5f} ms, tuned {tuned_ms:.5f} ms a wave ({reads}, "
+          f"{iters} waves a reading)", flush=True)
+    return {"key": key, "candidates": len(autotune.candidates(T_, B)), "max_abs_err": err,
+            "rows": cached[0], "warps": cached[1], "static_ms": static_ms,
+            "tuned_ms": tuned_ms, "readings": reads, "iters": iters}
+
+
+def _spied_serve():
+    """The fused launcher at 625 sites and 8 slots with every wave launch's
+    (learn, B, rows, warps) recorded; plans built afresh."""
+    seen = []
+    real = tnn_wave._launch
+
+    def spy(a, device):
+        seen.append((a.learn, a.B, a.rows, a.threads // 32))
+        real(a, device)
+
+    network_plan.cache_clear()
+    tnn_wave._launch = spy
+    try:
+        rep = launch_serve.main(AUTOTUNE_SERVE)
+        torch.cuda.synchronize()
+    finally:
+        tnn_wave._launch = real
+        network_plan.cache_clear()
+    return rep, [s for s in seen if not s[0]], [s for s in seen if s[0]]
+
+
+def autotune_serve_spy(dev) -> dict:
+    """Serve 64 requests at 625 sites and 8 slots through the fused launcher
+    with every wave launch's arguments recorded: each forward launch takes
+    the checked-in cache's (rows, warps), the learning ones the static rule
+    (all 8 warps). Then the same with a copy of the cache whose entry for
+    this geometry names another candidate (its own environment variable):
+    the launches follow the copy, and every request gets the same class."""
+    key = padding.plan_geometry_key(launcher_network_config(625, impl="fused"), 8)
+    out = {"key": key}
+    other = None
+    for name in ("checked-in", "altered"):
+        if name == "altered":
+            other = next(c for c in autotune.candidates(T, 8) if c != tuple(out["rows_warps"]))
+            path = os.path.join(ROOT, "build", "tuned_blocks_altered.json")
+            data = json.load(open(autotune.cache_path()))
+            data["geometries"][key] = dict(data["geometries"][key], rows=other[0],
+                                           warps=other[1])
+            with open(path, "w") as f:
+                json.dump(data, f)
+            os.environ["REPRO_TORCH_TUNED_BLOCKS"] = path
+        try:
+            want = autotune.lookup(key)
+            rep, fwd, learn = _spied_serve()
+        finally:
+            os.environ.pop("REPRO_TORCH_TUNED_BLOCKS", None)
+        if name == "altered" and want != other:
+            raise AssertionError(f"the altered cache reads {want}, not {other}")
+        if not fwd or any(s[1:] != (8, *want) for s in fwd):
+            raise AssertionError(f"serving at 8 slots ({name} cache) launched "
+                                 f"{sorted(set(fwd))}, the cache says {want}")
+        if any(s[3] != tnn_wave.MAX_THREADS // 32 for s in learn):
+            raise AssertionError(f"a learning launch took the tuned warps: {sorted(set(learn))}")
+        if name == "checked-in":
+            out.update(rows_warps=list(want), forward_launches=len(fwd),
+                       learn_launches=len(learn))
+            results = rep.results
+        elif rep.results != results:
+            raise AssertionError("serving with the altered cache classified differently")
+        print(f"  serving (625 sites, 8 slots, {rep.stats.requests} requests, {name} cache): "
+              f"{len(fwd)} forward launches, every one at rows={want[0]} warps={want[1]} "
+              f"({key}); {len(learn)} learning launches at the static rule", flush=True)
+    out["altered_rows_warps"] = list(other)
+    print(f"  the altered cache's launches give the checked-in run's class ids for all "
+          f"{len(results)} requests", flush=True)
+    return out
+
+
+def autotune_phase(dev, smi: str) -> dict:
+    """The checked-in cache passes ``--check``; every default geometry's
+    candidates bit-equal; static against tuned ms; the serving spy."""
+    if autotune.main(["--check"]) != 0:
+        raise AssertionError("the tuned cache lacks a default geometry")
+    tuned_on = autotune.cache_device().get("nvidia_smi")
+    print(f"  the cache was tuned on {tuned_on}; this card: {smi}", flush=True)
+    geoms = [autotune_geometry(cfg, B, 40 + i, dev)
+             for i, (cfg, B) in enumerate(autotune.default_geometries())]
+    return {"tuned_on": tuned_on, "geometries": geoms, "serve": autotune_serve_spy(dev)}
+
+
+FWD_SEEN = {}   # geometry key -> [launches, the (rows, warps) its plans carried]
+_WAVE_FORWARD = tnn_wave.wave_forward
+
+
+def _recorded_wave_forward(x, params, *, plan):
+    if x.is_cuda:
+        key = (f"C{plan.n_cols}_p{'x'.join(map(str, plan.ps))}_q{'x'.join(map(str, plan.qs))}"
+               f"_T{plan.T}_B{x.shape[0]}_packed{int(plan.packed)}")
+        seen = FWD_SEEN.setdefault(key, [0, set()])
+        seen[0] += 1
+        seen[1].add(plan.launch)
+    return _WAVE_FORWARD(x, params, plan=plan)
+
+
+def record_forward_geometries(on: bool) -> None:
+    """While on, count every forward wave that ``core.network`` launches on
+    the card (it calls ``tnn_wave.wave_forward`` through the module) by its
+    geometry key (``padding.plan_geometry_key``'s string), with the launch
+    extents its plans carried."""
+    tnn_wave.wave_forward = _recorded_wave_forward if on else _WAVE_FORWARD
+
+
+def forward_geometries_report() -> dict:
+    """The main path's forward geometries in this process: each plan
+    carried the cache's extents where it has an entry and the static rule
+    (None) where it has none; printed with which is which."""
+    out = {}
+    for key, (n, launches) in sorted(FWD_SEEN.items()):
+        cached = autotune.lookup(key)
+        if launches != {cached}:
+            raise AssertionError(f"{key}: the main path's plans carried {launches}, "
+                                 f"the cache says {cached}")
+        out[key] = {"launches": n, "cached": list(cached) if cached else None}
+        how = f"cached rows={cached[0]} warps={cached[1]}" if cached else "static rule"
+        print(f"  forward geometry {key}: {n} launches, {how}", flush=True)
+    serve_key = padding.plan_geometry_key(launcher_network_config(625, impl="fused"), SLOTS)
+    if out.get(serve_key, {}).get("cached") is None:
+        raise AssertionError(f"the {SLOTS}-slot serve ({serve_key}) launched without a "
+                             f"cache entry")
     return out
 
 
@@ -1166,7 +1387,9 @@ def train_phase(dev):
 # ---------------------------------------------------------------------------
 
 FIRING = (12, 3)  # network_config(625, 12, 3): layer 2 fires at full width
-ONLINE_REQUESTS, SWAP_EVERY, ONLINE_K = 1024, 4, 4
+# 512 requests: 8 learning waves, 2 drains of K = 4, 2 swaps (1,024 until
+# slice 13: the CPU's plain learning waves took a minute of the run's 1,200 s)
+ONLINE_REQUESTS, SWAP_EVERY, ONLINE_K = 512, 4, 4
 ONLINE_WAVES = ONLINE_REQUESTS // SLOTS
 ONLINE_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_online")  # .gitignore lists build/
 NO_LAUNCHES = {"tnn_wave[forward]": 0, "tnn_wave[learn]": 0, "tnn_column": 0,
@@ -1271,7 +1494,7 @@ def online_engine(impl: str, dev, params0, k: int):
 
 
 def online_path(impl: str, dev, params0, k: int = ONLINE_K, pipelined: bool = True):
-    """1,024 requests through an online engine (64 slots, swaps every 4
+    """ONLINE_REQUESTS requests through an online engine (64 slots, swaps every 4
     learning waves), counts from 0 just before the first submit and read
     after the last retire; every published vote table is kept."""
     eng = online_engine(impl, dev, params0, k)
@@ -1360,7 +1583,11 @@ def online_phase(dev, params0):
     cpu_wall = time.perf_counter() - t0
     runs["lockstep"] = online_path("fused", dev, params0, k=1, pipelined=False)
     ref = runs["cpu"]
-    swaps = {"pallas": 4, "fused": 4, "cpu": 4, "lockstep": 3}
+    # a swap every SWAP_EVERY waves; lock-step publishes the last one after
+    # its final wave, outside the run
+    pipelined = ONLINE_WAVES // SWAP_EVERY
+    swaps = {"pallas": pipelined, "fused": pipelined, "cpu": pipelined,
+             "lockstep": pipelined - 1}
     for name, r in runs.items():
         eng = r["eng"]
         if eng.swaps != swaps[name] or eng.stats().waves != ONLINE_WAVES:
@@ -1389,7 +1616,8 @@ def online_phase(dev, params0):
     imgs = digits(ONLINE_REQUESTS, seed=2)[0]
     for w in range(ONLINE_WAVES):
         state, _ = step(state, eng._encode(imgs[w * SLOTS:(w + 1) * SLOTS]))
-    _same_np_state(convert.state_to_numpy(state), ref["state"], "online shadow vs 16 train steps")
+    _same_np_state(convert.state_to_numpy(state), ref["state"],
+                   f"online shadow vs {ONLINE_WAVES} train steps")
     labels = digits(ONLINE_REQUESTS, seed=2)[1]
     out = {}
     for name, r in runs.items():
@@ -1412,7 +1640,7 @@ def online_phase(dev, params0):
                   f"{v['p50_ms']:.3f} ms, p95 {v['p95_ms']:.3f} ms, accuracy {v['accuracy']}")
     out["cpu"]["phase_wall_s"] = cpu_wall
     print(f"  pallas (card) == fused (card) == cpu == fused lock-step K=1: every uid's class "
-          f"id and version, shadow (wave {int(ref['state']['wave'])}) == 16 train steps, "
+          f"id and version, shadow (wave {int(ref['state']['wave'])}) == {ONLINE_WAVES} train steps, "
           f"published vote tables v0..v{max(ref['tables'])} (sums "
           f"{[float(t.sum()) for t in ref['tables'].values()]})", flush=True)
     for impl in ("pallas", "fused"):
@@ -1459,7 +1687,7 @@ def online_ckpt_phase(dev, ckpt_a: str, final_a):
 
 def loadgen_phase(dev):
     """The port's loadgen, online (swaps every 4 learning waves) at
-    theta = (12, 3): closed loop over 1,024 requests, then an open loop of
+    theta = (12, 3): closed loop over ONLINE_REQUESTS requests, then an open loop of
     2 s at half the images/s the closed loop measured, counts from 0 before
     each. Gate: every request served, versions never decrease along the
     retire order, launches as the engine's waves and swaps say."""
@@ -2149,6 +2377,15 @@ LM_WINDOWS = {
     "llama3.2-3b": (("embed", "embedding"), ("trunk", "0_dense", "attn", "wo")),
     "zamba2-7b": (("embed", "embedding"), ("trunk", "0_mamba", "mamba", "win"),
                   ("shared", "attn", "wq"), ("tail", "2_mamba", "mamba", "wout")),
+    # slice 13: and the leaf particular to the arch: qwen's QKV bias (drawn
+    # as zeros), mistral-nemo's (5,120, 32, 128) query projection (32 x 128
+    # = 4,096 is not d = 5,120), grok's (8, 6,144, 32,768) expert input
+    "qwen1.5-4b": (("embed", "embedding"), ("trunk", "0_dense", "mlp", "wo"),
+                   ("trunk", "0_dense", "attn", "bq")),
+    "mistral-nemo-12b": (("embed", "embedding"), ("trunk", "0_dense", "mlp", "wi"),
+                         ("trunk", "0_dense", "attn", "wq")),
+    "grok-1-314b": (("embed", "embedding"), ("trunk", "0_moe", "attn", "wq"),
+                    ("trunk", "0_moe", "moe", "wi")),
 }
 # stated tolerances. Card against card (batched engine vs a one-slot run of
 # the same tokens, bf16): argmax equal wherever the top-two margin exceeds
@@ -2192,14 +2429,19 @@ def lm_draw_windows(cfg, params) -> dict:
         for k in path:
             leaf = leaf[k]
         flat = leaf.reshape(-1)
-        std = torch.tensor(specs[path].std, dtype=torch.float32)
-        for lo in (0, flat.numel() - LM_WINDOW):
-            cpu = lm_draw_normal(keys[path], LM_WINDOW, "cpu", offset=lo).mul_(std)
-            card = flat[lo:lo + LM_WINDOW].cpu()
+        spec = specs[path]
+        n = min(LM_WINDOW, flat.numel())   # a leaf under a window is held whole
+        for lo in sorted({0, flat.numel() - n}):
+            if spec.init == "normal":
+                std = torch.tensor(spec.std, dtype=torch.float32)
+                cpu = lm_draw_normal(keys[path], n, "cpu", offset=lo).mul_(std)
+            else:   # zeros or ones: the CPU's whole leaf
+                cpu = lm_materialize(spec, keys[path], "cpu").reshape(-1)[lo:lo + n]
+            card = flat[lo:lo + n].cpu()
             bad = int((card.view(torch.int32) != cpu.view(torch.int32)).sum())
-            name = f"{'/'.join(path)}[{lo}:{lo + LM_WINDOW}]"
-            print(f"  draw window {name}: {bad} of {LM_WINDOW} floats differ from the CPU's",
-                  flush=True)
+            name = f"{'/'.join(path)}[{lo}:{lo + n}]"
+            print(f"  draw window {name} ({spec.init}): {bad} of {n} floats differ from "
+                  f"the CPU's", flush=True)
             if bad:
                 raise AssertionError(f"{name}: the card's draw differs from the CPU's")
             out[name] = bad
@@ -2561,6 +2803,63 @@ def frontend_phase(dev) -> dict:
             "winners": runs["pallas"]["winners"][0].tolist()}
 
 
+LM_LAST = ("qwen1.5-4b", "mistral-nemo-12b")   # served at full size (slice 13)
+LM_BIAS_STD = 0.5   # qwen's QKV biases in its card-vs-CPU check: a seeded draw, not zeros
+
+
+def lm_last_three(dev, smi: str, argv_tail) -> dict:
+    """Slice 13 (ROADMAP Queue 1 item 6(f)): qwen1.5-4b (QKV biases) and
+    mistral-nemo-12b (32 x 128 = 4,096 query width, not d = 5,120) served
+    at full size and held to one-slot runs, their draw windows against the
+    CPU's, then each cut to 2 layers card against the CPU in bf16 and f32
+    (qwen's biases filled with one seeded draw, so the bias add is
+    exercised); grok-1-314b (32,768-wide experts) cut to 2 of 64 layers
+    with its capacity factor at E / k, as mixtral's, served, held in
+    float32 (as zamba2-7b) and its batch drift printed, its draw windows
+    against the CPU's (its float32 params, 45.8 GB, are not copied to the
+    CPU). Each model freed before the next."""
+    out = {}
+    for arch in LM_LAST:
+        t1 = time.perf_counter()
+        case, rep = lm_serve_case(arch, ["--arch", arch, *argv_tail], dev, smi)
+        out[arch] = case
+        out[arch]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
+        del rep
+        _free()
+        cut = dataclasses.replace(get_lm_config(arch), n_layers=2, layout_repeat=2)
+        p2 = lm_model.init_params(cut, t_random.PRNGKey(0), dev)
+        if cut.qkv_bias:
+            rng = np.random.default_rng(17)
+            attn = p2["trunk"]["0_dense"]["attn"]
+            for k in ("bq", "bk", "bv"):
+                attn[k].copy_(torch.from_numpy(
+                    LM_BIAS_STD * rng.standard_normal(tuple(attn[k].shape), dtype=np.float32)))
+        out[f"{arch}_2layers_card_vs_cpu"] = lm_card_vs_cpu(cut, p2, dev, f"{arch} 2 layers")
+        del p2
+        _free()
+        out[f"seconds_{arch}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    grok = get_lm_config("grok-1-314b")
+    cut = dataclasses.replace(grok, n_layers=2, layout_repeat=2,
+                              moe_capacity_factor=grok.n_experts / grok.experts_per_token)
+    # held in float32: in bf16 one decode step of 128 differs from its
+    # one-row run by half the increment's RMS, the rest by about 0.01. A
+    # router near-tie (the k-th and (k+1)-th bf16 logits within an ulp)
+    # flips between the two runs, whose expert GEMMs (capacity 5 rows
+    # against 2) round apart; with the routing fixed, or the router's
+    # logits in float32, every step is within 0.011 (PERF.md, Findings).
+    # lm_batch_drift prints the model-level drift
+    case, rep = lm_serve_case("grok-1-314b (2 layers)", ["--arch", "grok-1-314b", *argv_tail],
+                              dev, smi, cfg=cut, hold_dtype="float32")
+    out["grok-1-314b_2layers"] = case
+    out["grok-1-314b_2layers"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
+    out["grok-1-314b_2layers"]["batch_drift"] = lm_batch_drift(rep.cfg, rep.params, dev)
+    del rep
+    _free()
+    out["seconds_grok-1-314b"] = time.perf_counter() - t1
+    return out
+
+
 def lm_phase(dev, smi: str) -> dict:
     """(a)-(f) of the LM serve path, then the slice-10 families and the
     frontend entry point; each model freed before the next."""
@@ -2580,8 +2879,13 @@ def lm_phase(dev, smi: str) -> dict:
     out["seconds_llama"] = time.perf_counter() - t0
     four = ["--requests", "4", "--slots", "4", "--max-new", str(LM_MAX_NEW),
             "--max-len", str(LM_MAX_LEN)]
-    case, rep = lm_serve_case("minicpm3-4b", ["--arch", "minicpm3-4b", *four], dev, smi)
-    out["minicpm3-4b"] = case
+    # minicpm3-4b cut to 16 of its 62 layers, zamba2-7b (below) to 4 of its 13
+    # units and the tail (with qwen1.5-4b and mistral-nemo-12b at full size,
+    # both at full size would take the run past 1,200 s)
+    case, rep = lm_serve_case("minicpm3-4b (16 layers)", ["--arch", "minicpm3-4b", *four],
+                              dev, smi, cfg=dataclasses.replace(
+                                  get_lm_config("minicpm3-4b"), n_layers=16, layout_repeat=16))
+    out["minicpm3-4b_16layers"] = case
     del rep
     _free()
     # mixtral cut to 2 layers, and its capacity factor raised to E / k so no
@@ -2598,18 +2902,21 @@ def lm_phase(dev, smi: str) -> dict:
     del rep
     _free()
     out["seconds_slice9"] = time.perf_counter() - t0
+    out.update(lm_last_three(dev, smi, four))
 
     # slice 10: the hybrid and SSM families served at full size, the
     # encoder-decoder and the VLM prefix at the model level, the frontend
     t1 = time.perf_counter()
-    # zamba2's 81 layers amplify bf16 rounding until a batched bf16 run and
-    # its one-row runs differ everywhere (PERF.md, Findings): its hold runs in
-    # float32
-    case, rep = lm_serve_case("zamba2-7b", ["--arch", "zamba2-7b", *LM_SERVE], dev, smi,
+    # zamba2's depth amplifies bf16 rounding until a batched bf16 run and its
+    # one-row runs differ everywhere (PERF.md, Findings): its hold runs in
+    # float32. Cut to 4 of its 13 units of 6 and the 3-block tail (27 layers)
+    case, rep = lm_serve_case("zamba2-7b (27 layers)", ["--arch", "zamba2-7b", *LM_SERVE], dev,
+                              smi, cfg=dataclasses.replace(get_lm_config("zamba2-7b"),
+                                                           n_layers=27, layout_repeat=4),
                               hold_dtype="float32")
-    out["zamba2-7b"] = case
-    out["zamba2-7b"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
-    out["zamba2-7b"]["batch_drift"] = lm_batch_drift(rep.cfg, rep.params, dev)
+    out["zamba2-7b_27layers"] = case
+    out["zamba2-7b_27layers"]["draw_windows"] = lm_draw_windows(rep.cfg, rep.params)
+    out["zamba2-7b_27layers"]["batch_drift"] = lm_batch_drift(rep.cfg, rep.params, dev)
     del rep
     _free()
     cut = dataclasses.replace(get_lm_config("zamba2-7b"), n_layers=9, layout_repeat=1)
@@ -3012,9 +3319,12 @@ LM_MESH_FACTORS = ((2, 2), (1, 4))
 LM_MESH_B, LM_MESH_S = 4, 128
 LM_MESH_PROMPT, LM_MESH_CACHE, LM_MESH_TICKS = 64, 128, 4
 LM_MESH_LOGITS = 1e-4        # f32 logits: of the largest |logit|
-LM_MESH_PROBE = ["--arch", "llama3.2-3b", "--cell", "train_4k", "--mesh", "2x2",
-                 "--backend", "gloo", "--batch", str(LM_MESH_B), "--seq", str(LM_MESH_S),
-                 "--repeat", "2", "--dtype", "float32", "--kv-chunk", "128", "--top", "8"]
+# slice 13: the smoke train steps of the other families at 2x2 (zamba2-7b's
+# meshed training is refused, ROADMAP Queue 3 item 16), as the CPU tests
+LM_MESH_FAMILIES = ("minicpm3-4b", "xlstm-125m", "whisper-tiny", "internvl2-76b")
+LM_MESH_FAMILY_B, LM_MESH_FAMILY_S = 4, 16
+LM_MESH_GRAD = 1e-4   # step-1 grads: of each leaf's largest |grad| (the CPU tests')
+
 
 
 def lm_tree_unflatten(flat: dict) -> dict:
@@ -3028,8 +3338,16 @@ def lm_tree_unflatten(flat: dict) -> dict:
     return tree
 
 
+LM_MESH_LAYERS = 2   # llama3.2-3b's layers in lm_mesh: the stacked layer dim and the
+                     # hand-off between layers run sharded
+LM_MESH_PROBE = ["--arch", "llama3.2-3b", "--cell", "train_4k", "--mesh", "2x2",
+                 "--backend", "gloo", "--batch", str(LM_MESH_B), "--seq", str(LM_MESH_S),
+                 "--repeat", str(LM_MESH_LAYERS), "--dtype", "float32", "--kv-chunk", "128",
+                 "--top", "8"]
+
+
 def _lm_mesh_cfg(mesh=None):
-    cfg = llama_layers(2, dtype="float32")
+    cfg = llama_layers(LM_MESH_LAYERS, dtype="float32")
     return PT.tuned_config(cfg, mesh) if mesh is not None else cfg
 
 
@@ -3062,7 +3380,7 @@ def _hold_params(state, ref, main: bool, what: str) -> dict:
     """Every param gathered (a collective); rank 0 holds each to the
     one-process card step at lm_train's tolerances."""
     lr = LM_HOLD_OPT["lr"]
-    worst_max, worst_rms, bad = 0.0, 0.0, []
+    worst_max, worst_rms, worst_leaf, bad = 0.0, 0.0, None, []
     for path, p in lm_tree_flatten(state["params"]):
         whole = PT.gather_tensor(p)
         if main:
@@ -3071,13 +3389,15 @@ def _hold_params(state, ref, main: bool, what: str) -> dict:
             dmax, drms = float(d.max()), float((d ** 2).mean().sqrt())
             moved = ref["moves"][path]
             worst_max = max(worst_max, dmax / lr)
-            worst_rms = max(worst_rms, drms / max(moved, 1e-30))
+            if drms / max(moved, 1e-30) >= worst_rms:
+                worst_rms, worst_leaf = drms / max(moved, 1e-30), "/".join(path)
             if dmax > LM_TRAIN_PARAM_LR * lr or drms > LM_TRAIN_PARAM_RMS * moved:
                 bad.append(f"{path}: max {dmax:.3g}, RMS {drms:.3g} of a {moved:.3g} move")
         del whole
     if bad:
         raise AssertionError(f"lm_mesh {what}: params differ from one process: {bad}")
-    return {"param_max_diff_in_lr": worst_max, "param_rms_diff_of_move": worst_rms}
+    return {"param_max_diff_in_lr": worst_max, "param_rms_diff_of_move": worst_rms,
+            "worst_rms_leaf": worst_leaf}
 
 
 def _lm_mesh_serve(mesh, cfg, ref, dev) -> dict:
@@ -3151,6 +3471,103 @@ def _lm_mesh_pipeline(dev) -> dict:
             err[f"grad_{k}"] / max(float(sp[k].grad.abs().max()), 1e-30) for k in ("w", "b")) > 2e-5:
         raise AssertionError(f"lm_mesh pipeline: card vs its sequential form {err}")
     return err
+
+
+def _family_cfg(arch, mesh_shape):
+    return PT.tuned_config(dataclasses.replace(lm_smoke_config(arch), dtype="float32"),
+                           mesh_shape)
+
+
+def _family_batches(cfg):
+    """Two token-stream batches with the family's seeded extras (frames or
+    embeds), host numpy."""
+    extras = {k: v.numpy() for k, v in lm_extras(cfg, LM_MESH_FAMILY_B, seed=31).items()}
+    stream = TokenStream(cfg.vocab_size, LM_MESH_FAMILY_B, LM_MESH_FAMILY_S, seed=0)
+    return [dict(stream.batch_at(i), **extras) for i in range(2)]
+
+
+def lm_mesh_family_reference(dev) -> dict:
+    """One process on the card: each of LM_MESH_FAMILIES' smoke configs (f32,
+    routing groups tuned to 2x2) drawn from PRNGKey(0) and trained two AdamW
+    steps; per-step metrics, end params and each param's RMS move."""
+    out = {}
+    for arch in LM_MESH_FAMILIES:
+        cfg = _family_cfg(arch, {"data": 2, "model": 2})
+        opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+        state = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), dev)
+        start = {p: t.detach().to("cpu", copy=True) for p, t in lm_tree_flatten(state["params"])}
+        step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=8))
+        batches = _family_batches(cfg)
+        _, _, g = lm_ts.value_and_grad(lm_ts.make_loss_fn(cfg, lm_ts.TrainConfig(kv_chunk=8)),
+                                       state["params"], lm_ts.device_batch(batches[0], dev))
+        grads = {p: t.detach().to("cpu", copy=True) for p, t in lm_tree_flatten(g)}
+        del g
+        metrics = []
+        for b in batches:
+            state, met = step(state, b)
+            metrics.append({k: float(v) for k, v in met.items()})
+        end = {p: t.detach().to("cpu", copy=True) for p, t in lm_tree_flatten(state["params"])}
+        out[arch] = {"end": end, "metrics": metrics, "grads": grads,
+                     "moves": {p: float(((end[p] - start[p]) ** 2).mean().sqrt()) for p in end}}
+    return out
+
+
+def _hold_grads(grads, want: dict, main: bool, what: str) -> dict:
+    """Every grad leaf gathered (a collective); rank 0 holds each to the
+    one-process card grads within LM_MESH_GRAD of the leaf's largest
+    |grad|: the grads' placement, before AdamW divides them by their own
+    size."""
+    worst, worst_leaf, bad = 0.0, None, []
+    for path, g in lm_tree_flatten(grads):
+        whole = PT.gather_tensor(g)
+        if main:
+            w = want[path].to(whole.device)
+            err = float((whole - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            if err >= worst:
+                worst, worst_leaf = err, "/".join(path)
+            if err > LM_MESH_GRAD:
+                bad.append(f"{path}: {err:.3g} of the largest |grad|")
+        del whole
+    if bad:
+        raise AssertionError(f"lm_mesh {what}: step-1 grads differ from one process: {bad}")
+    return {"grad_err_of_max": worst, "worst_grad_leaf": worst_leaf}
+
+
+def _lm_mesh_families(mesh, ref, main: bool) -> dict:
+    """LM_MESH_FAMILIES at 2x2: the sharded draw and two AdamW steps of each
+    family's smoke config with its extras, per-step metrics and end params
+    held to the one-process card run at lm_train's tolerances, and
+    the step-1 grads at the start to its grads within LM_MESH_GRAD."""
+    out = {}
+    for arch in LM_MESH_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = _family_cfg(arch, mesh)
+        opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+        state = lm_ts.init_state(cfg, opt_cfg, t_random.PRNGKey(0), mesh.device,
+                                 lm_ts.state_shardings(cfg, opt_cfg, mesh))
+        step = lm_ts.make_train_step(cfg, opt_cfg, lm_ts.TrainConfig(kv_chunk=8), mesh=mesh)
+        batches, prof = _family_batches(cfg), PT.RunProfile()
+        with use_partitioning(PT.device_mesh(mesh), PT.act_rules(mesh, prof)):
+            b = lm_ts.shard_batch(lm_ts.device_batch(batches[0], mesh.device), mesh, prof)
+            _, _, g = lm_ts.value_and_grad(
+                lm_ts.make_loss_fn(cfg, lm_ts.TrainConfig(kv_chunk=8)), state["params"], b)
+        res = {"steps": [], "step_ms": [], **_hold_grads(g, ref[arch]["grads"], main,
+                                                         f"2x2 {arch}")}
+        del g
+        for i, b in enumerate(batches):
+            state, met, ms = _timed_step(step, state, b)
+            res["steps"].append(met)
+            res["step_ms"].append(ms)
+            for k in ("loss", "loss_total", "grad_norm"):
+                a, w = met[k], ref[arch]["metrics"][i][k]
+                if not abs(a - w) <= LM_TRAIN_METRIC_REL * abs(w):
+                    raise AssertionError(f"lm_mesh 2x2 {arch} step {i + 1}: {k} {a} vs {w}")
+        res.update(_hold_params(state, ref[arch], main, f"2x2 {arch}"))
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        del state, step
+        _free()
+    return out
 
 
 def lm_mesh_ranks():
@@ -3230,6 +3647,7 @@ def lm_mesh_ranks():
         _free()
         if (d, m) == (2, 2):
             res["pipeline"] = _lm_mesh_pipeline(dev)
+            res["families"] = _lm_mesh_families(mesh, ref["families"], main)
         out[f"{d}x{m}"] = res
     return out
 
@@ -3285,8 +3703,12 @@ def lm_mesh_phase(dev, smi: str) -> dict:
             nxt.append(lg.argmax(-1).cpu())
     del params, cache
     _free()
+    t0 = time.perf_counter()
+    families = lm_mesh_family_reference(dev)
+    families_s = time.perf_counter() - t0
+    _free()
     torch.save({"end": end, "moves": moves, "metrics": metrics, "prompt": prompt,
-                "next": nxt[:LM_MESH_TICKS], "logits": logits},
+                "next": nxt[:LM_MESH_TICKS], "logits": logits, "families": families},
                os.path.join(LM_MESH_DIR, "ref.pt"))
     t0 = time.perf_counter()
     ranks = spawn_ranks(lm_mesh_ranks, 4, work_dir=os.path.join(LM_MESH_DIR, "ranks"),
@@ -3298,7 +3720,8 @@ def lm_mesh_phase(dev, smi: str) -> dict:
            "one_process": {"step_ms": one_ms, "peak_bytes": one_peak, "trace": one_trace,
                            "prefill_ms": serve_ms[0], "decode_tick_ms": serve_ms[1:]},
            "phase_wall_s": wall, "ranks_s": ranks_s}
-    print(f"  llama3.2-3b 2 layers f32 ({out['params']:,} params), B x S = {LM_MESH_B} x "
+    print(f"  llama3.2-3b {LM_MESH_LAYERS} layer(s) f32 ({out['params']:,} params), B x S = "
+          f"{LM_MESH_B} x "
           f"{LM_MESH_S}, on {smi}: one process (the card alone) step ms "
           f"{[round(v, 1) for v in one_ms]}, traced idle share "
           f"{one_trace['device_idle_share']}, peak {one_peak / 1e9:.2f} GB; prefill "
@@ -3326,11 +3749,29 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     two = ranks[0]["2x2"]
     out["2x2"].update(ckpt_save_s=two["ckpt_save_s"], pipeline=two["pipeline"],
                       probe=two["probe"])
+    out["families"] = {"one_process_s": families_s}
+    for arch in LM_MESH_FAMILIES:
+        r = [x["2x2"]["families"][arch] for x in ranks]
+        f = r[0]
+        out["families"][arch] = {k: f[k] for k in (
+            "steps", "grad_err_of_max", "worst_grad_leaf", "param_max_diff_in_lr",
+            "param_rms_diff_of_move", "worst_rms_leaf", "seconds")}
+        out["families"][arch]["step_ms"] = [x["step_ms"] for x in r]
+        print(f"  {arch} smoke (f32, {LM_MESH_FAMILY_B} x {LM_MESH_FAMILY_S}, extras where "
+              f"taken) at 2x2, 4 ranks sharing one card over gloo ({smi}): losses "
+              f"{[round(m['loss'], 6) for m in f['steps']]} and grad norms within "
+              f"{LM_TRAIN_METRIC_REL} of one process on the card; step-1 grads within "
+              f"{f['grad_err_of_max']:.3g} of the leaf's largest (tolerance {LM_MESH_GRAD}; "
+              f"worst {f['worst_grad_leaf']}); params after step 2: max "
+              f"{f['param_max_diff_in_lr']:.3g} lr, RMS {f['param_rms_diff_of_move']:.3g} of "
+              f"the move (tolerance {LM_TRAIN_PARAM_RMS}; worst {f['worst_rms_leaf']}); step ms/rank {[[round(v, 1) for v in x] for x in out['families'][arch]['step_ms']]}; "
+              f"{f['seconds']:.1f} s", flush=True)
     print(f"  2x2 checkpoint: saved in {two['ckpt_save_s']:.1f} s (gathered leaf by leaf, "
           f"rank 0 writes), each rank's sharded restore == its blocks, restored in one "
           f"process (rank 0, no shardings) == the gathered state, leaf by leaf; "
           f"pipeline_apply 4 stages card vs sequential: {two['pipeline']}", flush=True)
-    print("  collective probe (rank 0), llama3.2-3b 2 layers f32 train step on 2x2:", flush=True)
+    print(f"  collective probe (rank 0), llama3.2-3b {LM_MESH_LAYERS} layer(s) f32 train step "
+          f"on 2x2:", flush=True)
     for line in two["probe"]:
         print(f"    {line}", flush=True)
     print(f"  lm_mesh phase {wall:.1f} s (ranks {ranks_s:.1f} s)", flush=True)
@@ -3396,6 +3837,13 @@ def main() -> int:
     errs["tnn_wave"] = err
     timing = measure(full_hi, dev)
 
+    seconds = {}
+    t0 = time.perf_counter()
+    phase("autotune: the wave kernel's tuned forward launches (every candidate bit-equal, "
+          "static vs tuned ms, serving launches with the cached extents)")
+    tuned = autotune_phase(dev, smi_line)
+    seconds["autotune"] = time.perf_counter() - t0
+
     phase("kernels vs plain (bit for bit): tnn_column, stdp_update, wta")
     errs["tnn_column"] = check_columns(dev)
     errs["stdp_update"] = check_stdps(dev)
@@ -3407,6 +3855,7 @@ def main() -> int:
     layer_timing["threefry"] = measure_threefry(dev)
     draw_host = measure_draw_host_time(dev)
 
+    record_forward_geometries(True)
     phase("serve, impl=pallas (main path: launcher on the card, full width)")
     rep_p, counts_p, _ = serve_path("pallas", dev)
     want = expected_launches(2, rep_p.stats.waves)
@@ -3450,7 +3899,6 @@ def main() -> int:
     train, counts_t, (ckpt_a, trainer_a) = train_phase(dev)
     final_a = trainer_a.state
 
-    seconds = {}
     t0 = time.perf_counter()
     phase("serve at a firing theta = (12, 3): pallas (card), fused (card), CPU")
     firing, params0 = firing_phase(dev)
@@ -3485,6 +3933,11 @@ def main() -> int:
     phase("cells: tnn_infer_64k and tnn_train_8k (the reference's dry-run cells) on the card")
     cells = cells_phase(dev)
     seconds["cells"] = time.perf_counter() - t0
+    record_forward_geometries(False)
+    print("  the forward waves that serving, training, the flagship and the cells launched "
+          "on the card (this process; the mesh ranks launch over their local sites):",
+          flush=True)
+    tuned["main_path_geometries"] = forward_geometries_report()
 
     t0 = time.perf_counter()
     phase("mesh: the (data, model) mesh, 4 ranks sharing the card (gloo), 1 rank (NCCL)")
@@ -3493,9 +3946,10 @@ def main() -> int:
     errs["threefry[window]"] = mesh["window_err"]
 
     t0 = time.perf_counter()
-    phase("lm: LM serving on the card (llama3.2-3b, minicpm3-4b and zamba2-7b full size, "
-          "mixtral-8x22b cut to 2 layers, xlstm-125m, whisper-tiny, the internvl2-76b "
-          "prefix, the TNN-frontend entry point, the smoke configs against the CPU)")
+    phase("lm: LM serving on the card (llama3.2-3b, qwen1.5-4b and mistral-nemo-12b full "
+          "size, minicpm3-4b cut to 16 layers, zamba2-7b to 27, mixtral-8x22b and "
+          "grok-1-314b to 2, xlstm-125m, whisper-tiny, the internvl2-76b prefix, the "
+          "TNN-frontend entry point, the smoke configs against the CPU)")
     lm = lm_phase(dev, smi_line)
     seconds["lm"] = time.perf_counter() - t0
 
@@ -3508,15 +3962,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("lm_mesh: LM sharding, llama3.2-3b full width 2 layers f32, DTensor steps on "
           "2x2 and 1x4 (4 ranks sharing the card over gloo) vs one process, the sharded "
-          "checkpoint, the collective probe, the pipeline")
+          "checkpoint, the collective probe, the pipeline; the smoke train steps of "
+          "minicpm3-4b, xlstm-125m, whisper-tiny and internvl2-76b at 2x2")
     reset_counts()
     lm_mesh = lm_mesh_phase(dev, smi_line)
     if any(read_counts().values()):
         raise AssertionError(f"lm_mesh: the LM path launched TNN kernels {read_counts()}")
     seconds["lm_mesh"] = time.perf_counter() - t0
-    print(f"  slice-6 to slice-12 phase seconds: {seconds}", flush=True)
+    print(f"  slice-6 to slice-13 phase seconds: {seconds}", flush=True)
 
     phase("report")
+    print(f"  every phase's seconds: {phase_seconds()}", flush=True)
     kernels = []
     for half in ("forward", "learn"):
         t = timing[half]
@@ -3579,6 +4035,7 @@ def main() -> int:
                   "served_spikes": rep_p.served_spikes},
         "fallback_launches": counts_fb,
         "train": train,
+        "autotune": tuned,
         "firing": firing,
         "online": online,
         "online_ckpt": online_ckpt,
@@ -3591,6 +4048,7 @@ def main() -> int:
         "lm_train": lm_train,
         "lm_mesh": lm_mesh,
         "phase_seconds": seconds,
+        "every_phase_seconds": phase_seconds(),
         "uniform_draw_host_ms": draw_host,
         "threefry_sass": threefry_sass,
         "shapes": shapes,

@@ -11,9 +11,15 @@ The Hopper wave kernel masks a ragged batch itself and needs no padding;
 :class:`PadPlan` still records the logical extents, and the serving engine
 pads partial waves of requests to its fixed slot count through
 :func:`pad_batch_rows`. :class:`MeshSpec` cuts a (data, model) mesh rank's
-windows out of the global tensors with the same encodings. Block sizes are this port's own defaults: the
-reference's tuned block cache (``benchmarks/tuned_blocks.json``) was tuned
-for other hardware and is not read.
+windows out of the global tensors with the same encodings.
+
+:func:`network_plan` carries the wave kernel's forward launch extents (rows
+per batch chunk, warps per block) tuned for this exact geometry by
+``kernels.autotune`` on the card, looked up in the port's own cache
+(``kernels/tuned_blocks.json``) by :func:`plan_geometry_key`, the
+reference's key; a geometry without an entry keeps the kernel's static
+rule. The reference's TPU-tuned ``benchmarks/tuned_blocks.json`` is never
+read.
 """
 from __future__ import annotations
 
@@ -267,6 +273,9 @@ class NetworkPlan:
     # takes uint8 volleys and int8 weights and the results are identical
     # either way, so here it only keeps configs comparable.
     packed: bool = False
+    # The forward wave's launch extents (rows per chunk, warps per block)
+    # from the tuned cache; None = the kernel's static rule.
+    launch: Optional[Tuple[int, int]] = None
 
     @property
     def n_layers(self) -> int:
@@ -301,15 +310,36 @@ def fused_wave_capable(cfg) -> bool:
     return True
 
 
+def plan_geometry_key(cfg, batch: int, n_cols: Optional[int] = None) -> str:
+    """The reference's name of a fused-wave launch geometry, letter for
+    letter: the lookup key of the tuned cache. It covers only what changes
+    the launch shape (sites, per-layer extents, T, batch, packed IO), not
+    thresholds or STDP rates. ``n_cols`` overrides the config's site count:
+    a model-sharded step launches over its local sites, another geometry."""
+    first = cfg.layers[0]
+    C = first.n_cols if n_cols is None else n_cols
+    ps = "x".join(str(l.column.p) for l in cfg.layers)
+    qs = "x".join(str(l.column.q) for l in cfg.layers)
+    packed = int(bool(getattr(cfg, "packed", False)))
+    return (f"C{C}_p{ps}_q{qs}_T{first.column.wave.T}"
+            f"_B{batch}_packed{packed}")
+
+
 # The batch tile of the plan's pad geometry (the reference's untuned
 # default). The Hopper kernel chooses its own batch chunk at launch.
 BLOCK_B = 64
+# ``network_plan(launch=STATIC)``: the kernel's static rule, cache unread.
+STATIC = (0, 0)
 
 
 @functools.lru_cache(maxsize=64)
-def network_plan(cfg, batch: int, n_cols: Optional[int] = None) -> NetworkPlan:
+def network_plan(cfg, batch: int, n_cols: Optional[int] = None,
+                 launch: Optional[Tuple[int, int]] = None) -> NetworkPlan:
     """The fused wave's plan for ``(cfg, batch)``, cached on the frozen
-    config. ``n_cols`` overrides the config's site count."""
+    config. ``n_cols`` overrides the config's site count. ``launch=None``
+    looks the geometry up in the tuned cache (``kernels.autotune``) and
+    keeps the static rule where it has no entry; an explicit ``(rows,
+    warps)`` bypasses the cache, and :data:`STATIC` is the static rule."""
     if not fused_wave_capable(cfg):
         l_desc = [(l.n_cols, l.column.p, l.column.q) for l in cfg.layers]
         raise ValueError(
@@ -324,6 +354,10 @@ def network_plan(cfg, batch: int, n_cols: Optional[int] = None) -> NetworkPlan:
             f"wave spec T={spec.T} overflows the packed uint8 spike-time "
             f"encoding: times live in [0, T] with T as the 'no spike' pad "
             f"code, so the data plane requires T <= 254 — use time_bits <= 7")
+    if launch is None:
+        from repro_torch.kernels import autotune
+
+        launch = autotune.lookup(plan_geometry_key(cfg, batch, n_cols))
     pad = PadPlan.make(batch, first.column.p, block_b=BLOCK_B,
                        block_p=MAX_FUSED_P1)
     return NetworkPlan(
@@ -337,4 +371,5 @@ def network_plan(cfg, batch: int, n_cols: Optional[int] = None) -> NetworkPlan:
         mus=tuple((l.column.stdp.mu_capture, l.column.stdp.mu_backoff,
                    l.column.stdp.mu_search) for l in cfg.layers),
         packed=bool(getattr(cfg, "packed", False)),
+        launch=None if launch in (None, STATIC) else tuple(launch),
     )

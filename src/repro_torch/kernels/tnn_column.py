@@ -132,6 +132,12 @@ def tile_rows(T: int) -> int:
     return max(1, 16 // T)
 
 
+def tile_units(rows: int, T: int) -> int:
+    """The m16 tile units of a chunk of ``rows`` rows: the most warps a
+    block of it can use."""
+    return rows if T >= 16 else rows * T // 16
+
+
 def chunk_rows(B: int, T: int) -> int:
     """Rows per block: at most CHUNK_TILES m16 tiles, the batch split into
     equal chunks (no nearly empty one), each a whole number of tiles."""

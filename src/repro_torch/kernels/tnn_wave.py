@@ -29,7 +29,7 @@ from repro_torch.core.stdp import STDPConfig, stdp_net_from_uniforms
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.padding import NetworkPlan
-from repro_torch.kernels.tnn_column import chunk_rows, halve_rows, tile_rows
+from repro_torch.kernels.tnn_column import chunk_rows, halve_rows, tile_rows, tile_units
 
 MAX_LAYERS = 8        # TNN_MAX_LAYERS in csrc/tnn_wave.cu
 MAX_THREADS = 256     # TNN_MAX_THREADS in csrc/tnn_wave.cu
@@ -195,12 +195,14 @@ def _fill_common(x: torch.Tensor, params, plan: NetworkPlan,
         z = torch.empty((B, C, q), dtype=SPIKE_DTYPE, device=x.device)
         a.z[l] = z.data_ptr()
         zs.append(z)
-    # rows per chunk: at most CHUNK_TILES m16 tiles, the batch split evenly;
-    # when learning, each chunk's uniforms staged in shared memory beside
-    # it. Smaller chunks until it fits; then, learning, the uniforms read
-    # from device memory instead.
+    # rows per chunk: the tuned forward extents where the plan has them,
+    # else at most CHUNK_TILES m16 tiles, the batch split evenly; when
+    # learning, each chunk's uniforms staged in shared memory beside it.
+    # Smaller chunks until it fits; then, learning, the uniforms read from
+    # device memory instead.
     T, tile = plan.T, tile_rows(plan.T)
-    a.rows, a.u_stage = chunk_rows(B, T), int(learn)
+    tuned = None if learn else plan.launch
+    a.rows, a.u_stage = (tuned[0] if tuned else chunk_rows(B, T)), int(learn)
     lib = _lib()
     while lib.tnn_wave_smem_bytes(ctypes.byref(a)) > _build.MAX_SMEM:
         if a.rows > tile:
@@ -211,10 +213,10 @@ def _fill_common(x: torch.Tensor, params, plan: NetworkPlan,
             raise ValueError(
                 f"plan {plan.ps}x{plan.qs} needs more than {_build.MAX_SMEM} "
                 f"bytes of shared memory per site even at {tile} rows per chunk")
-    # one warp per m16 tile unit of a chunk, up to 8; all 8 when learning
-    # (the copies and the epilogue use every thread)
-    units = a.rows if T >= 16 else a.rows * T // 16
-    a.threads = MAX_THREADS if learn else 32 * min(MAX_THREADS // 32, units)
+    # one warp per m16 tile unit of a chunk, up to 8 (or the tuned count);
+    # all 8 when learning (the copies and the epilogue use every thread)
+    warps = tuned[1] if tuned else MAX_THREADS // 32
+    a.threads = MAX_THREADS if learn else 32 * min(warps, tile_units(a.rows, T))
     return a, zs
 
 

@@ -74,6 +74,20 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 LM_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_launch_ckpt")
 PRODUCTION = {"single": "16x16 mesh (256 cards)", "multi": "2x16x16 mesh (512 cards)"}
+# The archs whose train step needs an input the token stream does not carry.
+NO_STREAM_INPUTS = {
+    "whisper-tiny": "the encoder-decoder's decoder cross-attends to encoder frames "
+                    "(batch['frames']).",
+    "internvl2-76b": "the VLM's logits start with a prefix of image embeds "
+                     "(batch['embeds']), and the stream's labels cover only the tokens.",
+}
+# The archs whose meshed train step is not yet held to the reference.
+MESH_UNCHECKED = {
+    "zamba2-7b": "its 2x2 DTensor step matches the reference's loss and grads, but "
+                 "two AdamW steps move one norm-scale element whose grad sits at "
+                 "AdamW's eps apart by 0.02 lr, twice the params' RMS tolerance "
+                 "(ROADMAP Queue 3 item 16)",
+}
 
 
 def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
@@ -224,6 +238,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "cpu; gloo when ranks share one card)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.arch in NO_STREAM_INPUTS:
+        ap.error(f"--arch {args.arch}: {NO_STREAM_INPUTS[args.arch]} The token stream "
+                 f"carries no such input, and the reference launcher fails the same "
+                 f"way (ROADMAP Queue 3 item 15); train it through "
+                 f"train_step.make_train_step with the input in the batch")
+    if args.mesh and args.arch in MESH_UNCHECKED:
+        ap.error(f"--mesh with --arch {args.arch} is refused: "
+                 f"{MESH_UNCHECKED[args.arch]}; train it in one process")
     if args.production_mesh and args.arch != "tnn-mnist":
         ap.error(f"--production-mesh {args.production_mesh} is the reference's "
                  f"{PRODUCTION[args.production_mesh]}: a process mesh of that size "

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import _proj
 from repro_torch.models.params import ParamSpec
 from repro_torch.sharding.context import shard_activation
+from repro_torch.sharding.partition import contiguous_grad, is_sharded, local_slices
 
 F32 = torch.float32
 
@@ -96,6 +97,32 @@ def chunked_lrnn(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     y_inter = torch.einsum("bnihk,bnhkp->bnihp", cf * torch.exp(cum)[..., None], h_in)
     y = (y_intra + y_inter).reshape(B, S, h, P)
     return y, hprev
+
+
+def lrnn_rows(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              xv: torch.Tensor, h0: torch.Tensor, chunk: int = 256
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chunked_lrnn`; on DTensors, on each rank's batch rows as plain
+    tensors (the rows are independent), every other dim whole, the outputs
+    DTensors placed so: DTensor's propagation through the recurrence's
+    einsums fails a view of a permuted local block in the backward on torch
+    2.11 (ROADMAP Queue 3 item 14). Plain tensors go straight through."""
+    if not is_sharded(b):
+        return chunked_lrnn(log_a, b, c, xv, h0, chunk)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = b.device_mesh
+    want = [Shard(0) if pl.is_shard(0) else Replicate() for pl in b.placements]
+    rows = local_slices(b.shape, dm, want)[0]
+
+    def block(t):
+        if is_sharded(t):
+            return contiguous_grad(t.redistribute(dm, want).to_local())
+        return t[rows]
+
+    y, h = chunked_lrnn(*(block(t) for t in (log_a, b, c, xv, h0)), chunk)
+    return tuple(DTensor.from_local(t.contiguous(), dm, want, run_check=False)
+                 for t in (y, h))
 
 
 def lrnn_decode_step(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -198,7 +225,7 @@ def _mamba_run(x, p, cfg, h0, conv_state, chunk):
     ch = C_in[:, :, None, :].expand(B, S, heads, N)
     if h0 is None:
         h0 = torch.zeros((B, heads, N, cfg.ssm_head_dim), dtype=F32, device=x.device)
-    y, h_fin = chunked_lrnn(log_a, bh, ch, xh, h0, chunk)
+    y, h_fin = lrnn_rows(log_a, bh, ch, xh, h0, chunk)
     y = y.to(dt_) + xh * p["skip_d"].to(dt_)[None, None, :, None]
     y = y.reshape(B, S, d_in)
     y = y * F.silu(z)
@@ -294,11 +321,11 @@ def mlstm_train(x: torch.Tensor, p: Dict, cfg, chunk: int = 256) -> torch.Tensor
     dk = q.shape[-1]
     kin = _mlstm_key(k, log_i)
     h0 = torch.zeros((B, H, dk, dk), dtype=F32, device=x.device)
-    y, _ = chunked_lrnn(log_f, kin, q.to(F32), v.to(F32), h0, chunk)
+    y, _ = lrnn_rows(log_f, kin, q.to(F32), v.to(F32), h0, chunk)
     # the normaliser: the same recurrence with value 1
     ones = torch.ones(v.shape[:-1] + (1,), dtype=F32, device=x.device)
     n0 = torch.zeros((B, H, dk, 1), dtype=F32, device=x.device)
-    nrm, _ = chunked_lrnn(log_f, kin, q.to(F32), ones, n0, chunk)
+    nrm, _ = lrnn_rows(log_f, kin, q.to(F32), ones, n0, chunk)
     y = y / torch.clamp_min(torch.abs(nrm), 1.0)
     return _mlstm_out(y.reshape(B, S, -1), z, p, cfg, dt_)
 

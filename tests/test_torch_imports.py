@@ -18,7 +18,7 @@ from repro_torch.configs.tnn_mnist import launcher_network_config
 from repro_torch.core.column import init_weights
 from repro_torch.core.layer import init_layer, layer_uniforms
 from repro_torch.core.network import init_network
-from repro_torch.kernels import threefry
+from repro_torch.kernels import autotune, threefry
 from repro_torch.launch import dryrun as launch_dryrun
 from repro_torch.launch import loadgen as launch_loadgen
 from repro_torch.launch.mesh import make_mesh_2d
@@ -52,7 +52,8 @@ def test_port_imports_no_jax():
                 "models.params", "models.layers", "models.moe", "models.model",
                 "serve.engine", "models.ssm", "launch.tnn_frontend_lm",
                 "configs.xlstm_125m", "configs.zamba2_7b", "configs.whisper_tiny",
-                "data.tokens", "train.optimizer", "train.train_step", "train.trainer"):
+                "data.tokens", "train.optimizer", "train.train_step", "train.trainer",
+                "kernels.autotune"):
         assert f"repro_torch.{new}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -147,6 +148,9 @@ def test_defaults_are_cuda_and_raise_without_a_card(tmp_path):
     assert launch_frontend.parse_args([]).impl == "direct"
     with pytest.raises(RuntimeError, match="cuda"):
         launch_frontend.main([])
+    # the wave kernel's launch autotuner times on the card only
+    with pytest.raises(RuntimeError, match="cuda"):
+        autotune.tune_geometry(cfg, 2)
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

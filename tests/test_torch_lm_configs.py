@@ -129,3 +129,38 @@ def test_decode_bound_counts_weights_gathered_rows_and_cache():
     assert 1.9 < ms < 1.95 and ops < nbytes * 989e12 / 3.35e12
     mla = t_configs.get_config("minicpm3-4b")
     assert t_rl.lm_cache_bytes_per_position(mla) == 62 * (256 + 32) * 2
+
+
+def _dense_layer(d, H, KV, hd, ff, bias=False):
+    """One GQA decoder layer's floats: two norm scales, Q/K/V/O (and QKV
+    biases), the SwiGLU MLP's three matrices."""
+    return 2 * d + d * (H + 2 * KV) * hd + H * hd * d + (bias * (H + 2 * KV) * hd) + 3 * d * ff
+
+
+@pytest.mark.parametrize("arch,layers,per_layer,params,decode", [
+    # qwen1.5-4b: d 2,560, 20 heads (MHA) x 128 with QKV biases, d_ff 6,912,
+    # untied 151,936-row embedding and head
+    ("qwen1.5-4b", 40, _dense_layer(2560, 20, 20, 128, 6912, bias=True),
+     3_950_369_280, 3_561_413_120),
+    # mistral-nemo-12b: d 5,120, 32 query heads x 128 = 4,096 (not d), 8 KV
+    # heads, d_ff 14,336, 131,072-row embedding and head
+    ("mistral-nemo-12b", 40, _dense_layer(5120, 32, 8, 128, 14336),
+     12_247_782_400, 11_576_693_760),
+    # grok-1-314b cut to 2 of 64 layers: d 6,144, 48 x 128 queries, 8 KV
+    # heads, a router and 8 SwiGLU experts of d_ff 32,768
+    ("grok-1-314b", 2, _dense_layer(6144, 48, 8, 128, 0) + 6144 * 8 + 8 * 3 * 6144 * 32768,
+     11_450_578_944, 10_645_272_576),
+])
+def test_last_three_archs_by_hand(arch, layers, per_layer, params, decode):
+    """The three archs chip_smoke serves at full width: ``param_count`` (the
+    floats ``init_params`` draws, 4 bytes each: 15.8, 49.0 and 45.8 GB) and
+    the decode step's weights, from the layer shapes by hand."""
+    from repro_torch.models import model as t_model
+    cfg = t_configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers, layout_repeat=layers)
+    embed = cfg.vocab_size * cfg.d_model
+    assert per_layer * layers + 2 * embed + cfg.d_model == params
+    assert t_model.param_count(cfg) == params
+    assert t_rl.lm_decode_weights(cfg) == params - embed == decode
+    if arch == "qwen1.5-4b":
+        assert per_layer == 79_311_360

@@ -6,7 +6,8 @@ unstacked tail the reference ``Engine`` writes at the wrong axis, ROADMAP
 Queue 3 item 6) at 2 slots against a one-row greedy loop of the
 reference's own ``prefill`` + ``decode_step``; eos; temperature sampling on
 the reference's key chain; the recorded logits; and the launcher's LM
-path and its refusals (whisper-tiny: requests carry no encoder frames)."""
+path and its refusals (whisper-tiny: requests carry no encoder frames).
+The reference's params are drawn by the port (``tests/torch_lm_params.py``)."""
 import dataclasses
 
 import jax
@@ -24,6 +25,7 @@ from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.params import tree_flatten
 from repro_torch.serve.engine import Engine, Request, check_servable
+from torch_lm_params import reference_params
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 MAX_LEN, MAX_NEW = 32, 4
@@ -53,8 +55,8 @@ def served():
 
     def get(arch):
         if arch not in memo:
-            jc, _ = _cfgs(arch)
-            params = JM.init_params(jc, jax.random.PRNGKey(0))
+            jc, tc = _cfgs(arch)
+            params = reference_params(tc)
             prompts = _prompts(jc.vocab_size)
             greedy = _serve(JEngine(jc, params, n_slots=3, max_len=MAX_LEN), JRequest, prompts)
             sampled = None
@@ -107,7 +109,7 @@ def test_zamba2_two_slots_equal_reference_one_row_loop():
     """The hybrid's batched engine (its tail cache written at axis 0) gives
     every request the tokens of the reference model's one-row greedy loop."""
     jc, tc = _cfgs("zamba2-7b")
-    params = JM.init_params(jc, jax.random.PRNGKey(0))
+    params = reference_params(tc)
     prompts = _prompts(jc.vocab_size)
     eng = Engine(tc, convert.lm_params_from_numpy(jax.tree.map(np.asarray, params), tc, "cpu"),
                  n_slots=2, max_len=MAX_LEN, device="cpu")

@@ -1,11 +1,16 @@
 """LM sharding on a (data, model) process mesh: the port's DTensor train and
 serve steps (``repro_torch.train.train_step`` with ``mesh=``) on 4 gloo
-ranks at 2x2 against the JAX package's unmeshed steps, the sharded
+ranks at 2x2 against the JAX package's unmeshed steps (train steps for one
+arch of every family but the hybrid: the dense and MoE decoders, MLA, the
+SSM, the encoder-decoder with seeded ``frames`` and the VLM prefix with
+seeded ``embeds``; zamba2-7b's meshed training is refused, ROADMAP Queue 3
+item 16), the sharded
 checkpoint, ``sharding.pipeline.pipeline_apply`` against the reference's
 sequential ``lax.scan``, and the train launcher's ``--mesh 2x2``.
 
 The reference runs here, in the main process, under one ``jax.jit`` per
-function; its params (``init_params(PRNGKey(0))``), batches and greedy
+function; its params (``init_params(PRNGKey(0))``, drawn by the port,
+``tests/torch_lm_params.py``), batches and greedy
 tokens cross to the ranks as an ``.npz`` (``tests/torch_mesh.py``'s
 ``lm_suite`` is the rank body, one start of the 4 ranks). The configs are
 the smoke configs in float32 with ``moe_groups`` tiled to the 2 data shards
@@ -56,6 +61,7 @@ import torch_mesh as tm
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.launch import train as t_train
 from repro_torch.models.params import tree_flatten
+from torch_lm_params import reference_state
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 def _jcfg(arch):
@@ -77,14 +83,14 @@ def ref(tmp_path_factory):
     jo = JO.OptConfig(**tm.LM_OPT)
     for arch in tm.LM_ARCHS:
         jc = _jcfg(arch)
-        state = JTS.init_state(jc, jo, jax.random.PRNGKey(0))
+        state = reference_state(tm.lm_cfg(arch, {"data": 2, "model": 2}), jo)
         out[f"{arch}.params0"] = state["params"]
         for k, v in _flat(state["params"]).items():
             arrays[f"{arch}.params.{k}"] = v
         stream = TokenStream(jc.vocab_size, tm.LM_B, tm.LM_S, seed=0)
-        batches = [stream.batch_at(i) for i in range(2)]
+        batches = [dict(stream.batch_at(i), **tm.lm_extras(jc, tm.LM_B)) for i in range(2)]
         for i, b in enumerate(batches):
-            arrays[f"{arch}.tokens{i}"], arrays[f"{arch}.labels{i}"] = b["tokens"], b["labels"]
+            arrays.update({f"{arch}.b{i}.{k}": v for k, v in b.items()})
         loss_fn = JTS.make_loss_fn(jc, JTS.TrainConfig(kv_chunk=tm.LM_KV_CHUNK))
         vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
         update = jax.jit(lambda g, o, p: JO.opt_update(g, o, p, jo))
@@ -102,7 +108,8 @@ def ref(tmp_path_factory):
     # 3 greedy decode ticks
     jc = _jcfg("llama3.2-3b")
     params = out.pop("llama3.2-3b.params0")
-    out.pop("mixtral-8x22b.params0")
+    for arch in tm.LM_ARCHS[1:]:
+        out.pop(f"{arch}.params0")
     tokens = np.random.default_rng(3).integers(0, jc.vocab_size, (tm.LM_B, 12)).astype(np.int32)
     arrays["serve.tokens"] = tokens
     prefill, decode = JTS.make_serve_steps(jc, kv_chunk=tm.LM_KV_CHUNK)
@@ -170,6 +177,16 @@ def test_meshed_train_steps_match_the_reference(ref, ranks, arch):
                   tm.LM_OPT["lr"])
     if arch == "llama3.2-3b":
         assert got["adafactor"] <= 1e-5
+
+
+def test_lrnn_rows_matches_chunked_lrnn(ranks):
+    """The meshed SSM recurrence (``ssm.lrnn_rows``: each rank's rows as
+    plain tensors) equals the recurrence on the whole rows, forward and
+    every input's grad, within 1e-6 of each one's largest value."""
+    got = ranks["lrnn_rows"]
+    assert sorted(got) == ["grad0", "grad1", "grad2", "grad3", "grad4", "h", "y"]
+    for k, err in got.items():
+        assert err <= 1e-6, k
 
 
 def test_meshed_prefill_and_decode_match_the_reference(ref, ranks):

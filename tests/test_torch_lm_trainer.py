@@ -448,3 +448,20 @@ def test_launcher_refuses_lm_meshes(flags, capsys):
         assert "256 cards" in err and "--mesh DxM" in err
     assert t_launch.parse_args([]).arch == "tnn-mnist"
     assert t_launch.parse_args(["--mesh", "2x2"]).mesh == "2x2"   # tnn-mnist keeps it
+
+
+@pytest.mark.parametrize("arch,flags,item", [
+    ("whisper-tiny", [], 15), ("whisper-tiny", ["--mesh", "2x2"], 15),
+    ("internvl2-76b", [], 15), ("internvl2-76b", ["--mesh", "2x2"], 15),
+    ("zamba2-7b", ["--mesh", "2x2"], 16)])
+def test_launcher_refuses_unheld_lm_runs(arch, flags, item, capsys):
+    """The encoder-decoder and the VLM need frames or a prefix of embeds that
+    the token stream does not carry (the reference launcher fails on them
+    too); zamba2-7b's meshed step is not held to the reference. Each exits 2
+    naming the ROADMAP item that keeps it, meshed or not; zamba2 trains
+    unmeshed."""
+    with pytest.raises(SystemExit) as e:
+        t_launch.main(["--arch", arch, "--smoke", "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert f"ROADMAP Queue 3 item {item}" in capsys.readouterr().err
+    assert t_launch.parse_args(["--arch", "zamba2-7b", "--smoke"]).mesh is None

@@ -186,7 +186,10 @@ def suite(ref_path, work_dir):
 # LM sharding: the DTensor train and serve steps on a 2x2 mesh
 # ---------------------------------------------------------------------------
 
-LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b")
+# dense, MoE, MLA, SSM, encoder-decoder (with frames), VLM prefix (with
+# embeds); the hybrid zamba2-7b is refused meshed (ROADMAP Queue 3 item 16)
+LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b", "minicpm3-4b", "xlstm-125m", "whisper-tiny",
+            "internvl2-76b")
 LM_B, LM_S, LM_KV_CHUNK = 4, 16, 8
 LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 LM_CACHE = 24
@@ -203,6 +206,19 @@ def lm_cfg(arch, mesh_shape):
 
     return PT.tuned_config(dataclasses.replace(smoke_config(arch), dtype="float32"),
                            mesh_shape)
+
+
+def lm_extras(cfg, rows):
+    """The family's seeded extra inputs, float32: ``frames`` for the
+    encoder-decoder, ``embeds`` for the VLM prefix (never zeros)."""
+    rng = np.random.default_rng(5)
+    if cfg.frontend == "vision_stub":
+        return {"embeds": rng.standard_normal((rows, cfg.frontend_len, cfg.d_model),
+                                              dtype=np.float32)}
+    if cfg.n_enc_layers:
+        return {"frames": rng.standard_normal((rows, cfg.enc_seq, cfg.d_model),
+                                              dtype=np.float32)}
+    return {}
 
 
 def _np_tree(tree):
@@ -228,8 +244,8 @@ def _lm_train(ref, arch, mesh, work_dir):
     state = {"params": params, "opt": OPT.opt_init(params, opt_cfg),
              "step": torch.zeros((), dtype=torch.int32)}
     state = TS.shard_state(state, TS.state_shardings(c, opt_cfg, mesh, prof))
-    batches = [{"tokens": ref[f"{arch}.tokens{i}"], "labels": ref[f"{arch}.labels{i}"]}
-               for i in range(2)]
+    batches = [{k[len(f"{arch}.b{i}."):]: ref[k] for k in ref.files
+                if k.startswith(f"{arch}.b{i}.")} for i in range(2)]
     loss_fn = TS.make_loss_fn(c, TS.TrainConfig(kv_chunk=LM_KV_CHUNK))
     with use_partitioning(PT.device_mesh(mesh), PT.act_rules(mesh, prof)):
         # step 1 by hand (the grads are held too), step 2 by the train step
@@ -330,6 +346,40 @@ def _lm_serve(ref, mesh):
     return {"logits": np.stack(logits)}
 
 
+def _lrnn_rows(mesh):
+    """``ssm.lrnn_rows`` on DTensors (rows over the data axis, heads over
+    the model axis) against ``chunked_lrnn`` on the whole tensors, seeded:
+    the outputs and every input's grad, each as its largest difference over
+    its largest value."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import ssm
+    from repro_torch.sharding import partition as PT
+
+    g = torch.Generator().manual_seed(3)
+    B, S, H, N, P = 4, 40, 4, 8, 8   # S not a multiple of the chunk
+    whole = [-2 * torch.rand(B, S, H, generator=g)] + [
+        torch.randn(*shape, generator=g) for shape in
+        ((B, S, H, N), (B, S, H, N), (B, S, H, P), (B, H, N, P))]
+    gy, gh = torch.randn(B, S, H, P, generator=g), torch.randn(B, H, N, P, generator=g)
+    whole = [t.requires_grad_() for t in whole]
+    y, h = ssm.chunked_lrnn(*whole, chunk=16)
+    ((y * gy).sum() + (h * gh).sum()).backward()
+    dm = PT.device_mesh(mesh)
+    dts = [distribute_tensor(t.detach(), dm, [Shard(0), Shard(2)]).requires_grad_()
+           for t in whole]
+    y2, h2 = ssm.lrnn_rows(*dts, chunk=16)
+    ((y2 * distribute_tensor(gy, dm, y2.placements)).sum()
+     + (h2 * distribute_tensor(gh, dm, h2.placements)).sum()).backward()
+
+    def rel(a, b):
+        a = PT.gather_tensor(a.detach())
+        return float((a - b.detach()).abs().max() / b.detach().abs().max())
+
+    return {"y": rel(y2, y), "h": rel(h2, h),
+            **{f"grad{i}": rel(d.grad, w.grad) for i, (d, w) in enumerate(zip(dts, whole))}}
+
+
 def _pipeline(ref):
     """``pipeline_apply`` over the 4 ranks as stages: forward, and the
     grads of sum(out^2) with respect to this stage's layers; and the same
@@ -394,6 +444,7 @@ def lm_suite(ref_path, work_dir):
     mesh = make_mesh_2d(2, 2, device="cpu", backend="gloo")
     out = {arch: _lm_train(ref, arch, mesh, work_dir) for arch in LM_ARCHS}
     out["serve"] = _lm_serve(ref, mesh)
+    out["lrnn_rows"] = _lrnn_rows(mesh)
     out["pipeline"] = _pipeline(ref)
     d = os.path.join(work_dir, "lm_launch")
     args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "4", "--seq", "16",
