@@ -190,6 +190,20 @@ phases launch are counted by geometry key: each took the cache's extents
 where it has an entry (the 64-slot serve must have one). A phase's
 seconds print as the next starts.
 
+Slice 14 adds to lm_mesh, after llama3.2-3b's serve under each of 2x2 and
+1x4, the meshed serve of the six other families' smoke configs in float32
+(mixtral-8x22b past its sliding window, minicpm3-4b, xlstm-125m,
+zamba2-7b, whisper-tiny with seeded frames, internvl2-76b with seeded
+prefix embeds): a sharded prefill of 13 tokens (mixtral's 18) into a
+24-position cache and 3 ticks fed the one-process greedy tokens, held to
+the same family's one-process run on the card (logits within
+LM_MESH_LOGITS, the greedy token outside near ties, every cache leaf after
+the last tick within LM_MESH_CACHE_HOLD of its largest |value|), each family's
+rank-0 prefill and median tick ms printed; and under 2x2 the collective
+probe's whisper-tiny and internvl2-76b prefill cells on the inputs the
+reference's specs declare, their logits equal to the meshed serve's
+prefill on the same inputs.
+
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -3324,6 +3338,17 @@ LM_MESH_LOGITS = 1e-4        # f32 logits: of the largest |logit|
 LM_MESH_FAMILIES = ("minicpm3-4b", "xlstm-125m", "whisper-tiny", "internvl2-76b")
 LM_MESH_FAMILY_B, LM_MESH_FAMILY_S = 4, 16
 LM_MESH_GRAD = 1e-4   # step-1 grads: of each leaf's largest |grad| (the CPU tests')
+# slice 14: the smoke serve steps of every other family at 2x2 and 1x4, as
+# the CPU tests: 13 tokens end inside a rank's block of the 24 cache
+# positions under both meshes; mixtral's 18 run past its window (16), so the
+# ring buffer rolls and wraps sharded; internvl2's 8 prefix embeds, 13
+# tokens and 3 ticks fill its cache
+LM_MESH_SERVE_FAMILIES = ("mixtral-8x22b", "minicpm3-4b", "xlstm-125m", "zamba2-7b",
+                          "whisper-tiny", "internvl2-76b")
+LM_MESH_SERVE_CACHE, LM_MESH_SERVE_TICKS = 24, 3
+LM_MESH_SERVE_PROMPT = {"mixtral-8x22b": 18}   # 13 tokens otherwise
+LM_MESH_CACHE_HOLD = 1e-4   # cache leaves after the last tick: of the leaf's largest |value|
+LM_MESH_PROBE_SERVE = ("whisper-tiny", "internvl2-76b")   # the probe's prefill cells, 2x2
 
 
 
@@ -3400,43 +3425,196 @@ def _hold_params(state, ref, main: bool, what: str) -> dict:
             "worst_rms_leaf": worst_leaf}
 
 
+def _mesh_serve(cfg, mesh, params, n_cache: int, prompt, extras: dict, want: dict,
+                kv_chunk: int, what: str):
+    """A sharded prefill of ``prompt`` (after any prefix embeds) into a
+    float32 cache of ``n_cache`` positions and decode ticks fed the
+    one-process greedy tokens ``want["next"]``; every step's logits held to
+    ``want["logits"]`` within LM_MESH_LOGITS of the largest |logit|, the
+    greedy token outside near ties. Returns the numbers and the cache."""
+    dev, prof = mesh.device, PT.RunProfile()
+    B = prompt.shape[0]
+    meta = lm_model.init_cache(cfg, B, n_cache, torch.float32, "meta")
+    cache = PT.shard_tree(lm_model.init_cache(cfg, B, n_cache, torch.float32, dev),
+                          lm_ts.cache_shardings(cfg, meta, mesh, prof))
+    prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=kv_chunk, mesh=mesh, prof=prof)
+    extras = {k: v.to(dev) for k, v in extras.items()}
+    start = prompt.shape[1] + (extras["embeds"].shape[1] if "embeds" in extras else 0)
+    errs, ties, argmax_ok, ms = [], 0, True, []
+    with torch.no_grad():
+        for t in range(len(want["logits"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == 0:
+                lg, _ = prefill(params, prompt.to(dev), cache, **extras)
+            else:
+                lg, _ = decode(params, want["next"][t - 1].to(dev), start + t - 1, cache)
+            lg = PT.gather_tensor(lg)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            ref = want["logits"][t].to(dev)
+            top = float(ref.abs().max())
+            err = float((lg - ref).abs().max())
+            errs.append(err / top)
+            if err > LM_MESH_LOGITS * top:
+                raise AssertionError(f"lm_mesh {what} tick {t}: logits {err:.3g} of {top:.3g}")
+            two = ref.topk(2, dim=-1).values
+            clear = (two[:, 0] - two[:, 1]) > 2 * LM_MESH_LOGITS * top
+            ties += int((~clear).sum())
+            if not bool((lg.argmax(-1) == ref.argmax(-1))[clear].all()):
+                argmax_ok = False
+    if not argmax_ok:
+        raise AssertionError(f"lm_mesh {what}: a greedy token differs outside near ties")
+    return {"logit_err_of_max": errs, "near_ties": ties, "prefill_ms": ms[0],
+            "decode_tick_ms": ms[1:]}, cache
+
+
 def _lm_mesh_serve(mesh, cfg, ref, dev) -> dict:
     """The one-process run's end params sharded, a sharded prefill of the
     prompt into a float32 cache and LM_MESH_TICKS decode ticks fed the
     one-process greedy tokens; logits held to the one-process ones."""
-    prof = PT.RunProfile()
-    params = PT.shard_tree(ref["end_tree"], lm_ts.param_shardings(cfg, mesh, prof), dev)
-    cache = lm_model.init_cache(cfg, LM_MESH_B, LM_MESH_CACHE, torch.float32, "meta")
-    cache = PT.shard_tree(lm_model.init_cache(cfg, LM_MESH_B, LM_MESH_CACHE, torch.float32, dev),
-                          lm_ts.cache_shardings(cfg, cache, mesh, prof))
-    prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=128, mesh=mesh, prof=prof)
-    errs, ties, argmax_ok, ms = [], 0, True, []
-    with torch.no_grad():
-        for t in range(LM_MESH_TICKS + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if t == 0:
-                lg, _ = prefill(params, ref["prompt"].to(dev), cache)
-            else:
-                lg, _ = decode(params, ref["next"][t - 1].to(dev), LM_MESH_PROMPT + t - 1, cache)
-            lg = PT.gather_tensor(lg)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            want = ref["logits"][t].to(dev)
-            top = float(want.abs().max())
-            err = float((lg - want).abs().max())
-            errs.append(err / top)
-            if err > LM_MESH_LOGITS * top:
-                raise AssertionError(f"lm_mesh serve tick {t}: logits {err:.3g} of {top:.3g}")
-            two = want.topk(2, dim=-1).values
-            clear = (two[:, 0] - two[:, 1]) > 2 * LM_MESH_LOGITS * top
-            ties += int((~clear).sum())
-            if not bool((lg.argmax(-1) == want.argmax(-1))[clear].all()):
-                argmax_ok = False
-    if not argmax_ok:
-        raise AssertionError("lm_mesh serve: a greedy token differs outside near ties")
-    return {"logit_err_of_max": errs, "near_ties": ties, "prefill_ms": ms[0],
-            "decode_tick_ms": ms[1:]}
+    params = PT.shard_tree(ref["end_tree"], lm_ts.param_shardings(cfg, mesh), dev)
+    res, _ = _mesh_serve(cfg, mesh, params, LM_MESH_CACHE, ref["prompt"], {}, ref, 128, "serve")
+    return res
+
+
+def _family_serve_inputs(cfg, arch: str) -> tuple:
+    """The family's seeded prompt and extras (frames or embeds), host."""
+    S = LM_MESH_SERVE_PROMPT.get(arch, 13)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_MESH_FAMILY_B, S), generator=_gen(14))
+    return prompt, lm_extras(cfg, LM_MESH_FAMILY_B, seed=31)
+
+
+def lm_mesh_family_serve_reference(dev) -> dict:
+    """One process on the card: each of LM_MESH_SERVE_FAMILIES' smoke
+    configs (f32, routing groups tuned to each of LM_MESH_FACTORS) drawn
+    from PRNGKey(0), its prompt prefilled into a float32 cache and
+    LM_MESH_SERVE_TICKS greedy ticks: logits, greedy tokens, every cache
+    leaf after the last tick, prefill and tick ms; by arch and mesh."""
+    out = {}
+    for arch in LM_MESH_SERVE_FAMILIES:
+        runs = []   # (config, its run): meshes that tune a config alike share a run
+        for d, m in LM_MESH_FACTORS:
+            cfg = _family_cfg(arch, {"data": d, "model": m})
+            same = [r for c, r in runs if c == cfg]
+            if same:
+                out[f"{arch}@{d}x{m}"] = same[0]
+                continue
+            params = lm_model.init_params(cfg, t_random.PRNGKey(0), dev)
+            prompt, extras = _family_serve_inputs(cfg, arch)
+            extras = {k: v.to(dev) for k, v in extras.items()}
+            start = prompt.shape[1] + (extras["embeds"].shape[1] if "embeds" in extras else 0)
+            cache = lm_model.init_cache(cfg, LM_MESH_FAMILY_B, LM_MESH_SERVE_CACHE,
+                                        torch.float32, dev)
+            prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=8)
+            logits, nxt, ms = [], [], []
+            with torch.no_grad():
+                for t in range(LM_MESH_SERVE_TICKS + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if t == 0:
+                        lg, _ = prefill(params, prompt.to(dev), cache, **extras)
+                    else:
+                        lg, _ = decode(params, nxt[-1].to(dev), start + t - 1, cache)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                    logits.append(lg.cpu())
+                    nxt.append(lg.argmax(-1).cpu())
+            out[f"{arch}@{d}x{m}"] = {
+                "logits": logits, "next": nxt[:LM_MESH_SERVE_TICKS],
+                "cache": [(p, t.to("cpu", copy=True)) for p, t in lm_tree_flatten(cache)],
+                "prefill_ms": ms[0], "decode_tick_ms": ms[1:]}
+            runs.append((cfg, out[f"{arch}@{d}x{m}"]))
+            del params, cache
+    return out
+
+
+def _hold_cache(cache, want: list, main: bool, what: str) -> dict:
+    """Every cache leaf gathered (a collective); rank 0 holds each to the
+    one-process card cache within LM_MESH_CACHE_HOLD of the leaf's largest
+    |value|: the families' states, windows and latent, ring and cross
+    caches, which the logits of a few ticks need not show."""
+    worst, worst_leaf, bad = 0.0, None, []
+    got = lm_tree_flatten(cache)
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"lm_mesh {what}: the cache's leaves differ from one process")
+    for (path, c), (_, w) in zip(got, want):
+        whole = PT.gather_tensor(c)
+        if main:
+            w = w.to(whole.device)
+            if whole.shape != w.shape or whole.dtype != w.dtype:
+                raise AssertionError(f"lm_mesh {what}: cache leaf {path} is {whole.dtype} "
+                                     f"{tuple(whole.shape)}, one process {w.dtype} {tuple(w.shape)}")
+            top = float(w.abs().max())
+            err = float((whole - w).abs().max())
+            if err / max(top, 1e-30) >= worst:
+                worst, worst_leaf = err / max(top, 1e-30), "/".join(map(str, path))
+            if err > LM_MESH_CACHE_HOLD * top:
+                bad.append(f"{path}: {err:.3g} of {top:.3g}")
+        del whole
+    if bad:
+        raise AssertionError(f"lm_mesh {what}: cache leaves differ from one process: {bad}")
+    return {"cache_err_of_max": worst, "worst_cache_leaf": worst_leaf}
+
+
+def _lm_mesh_family_serve(mesh, ref: dict, main: bool) -> dict:
+    """LM_MESH_SERVE_FAMILIES on this mesh: the smoke params (f32,
+    PRNGKey(0)) sharded, the prompt and extras prefilled sharded and
+    LM_MESH_SERVE_TICKS ticks fed the one-process greedy tokens
+    (:func:`_mesh_serve`); then every cache leaf held (:func:`_hold_cache`)."""
+    shape = PT.mesh_shape(mesh)
+    f = f"{shape['data']}x{shape['model']}"
+    out = {}
+    for arch in LM_MESH_SERVE_FAMILIES:
+        t0 = time.perf_counter()
+        what = f"{f} {arch} serve"
+        cfg = _family_cfg(arch, mesh)
+        want = ref[f"{arch}@{f}"]
+        params = PT.shard_tree(lm_model.init_params(cfg, t_random.PRNGKey(0), mesh.device),
+                               lm_ts.param_shardings(cfg, mesh))
+        prompt, extras = _family_serve_inputs(cfg, arch)
+        res, cache = _mesh_serve(cfg, mesh, params, LM_MESH_SERVE_CACHE, prompt, extras, want,
+                                 8, what)
+        res.update(_hold_cache(cache, want["cache"], main, what))
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        del params, cache
+    return out
+
+
+def _lm_mesh_probe_serve(mesh) -> dict:
+    """The collective probe's prefill cell of LM_MESH_PROBE_SERVE's archs
+    (smoke, f32, the reference's specs' inputs: whisper's frames, the
+    VLM's prefix embeds and its cache of S + frontend_len) at 2x2, and the
+    meshed serve's prefill of the same params on the same inputs: equal
+    logits. Returns the probe's lines."""
+    from repro_torch.configs import cell_by_name
+    from repro_torch.launch import collective_probe as t_probe
+
+    out = {}
+    for arch in LM_MESH_PROBE_SERVE:
+        args = t_probe.parse_args([
+            "--arch", arch, "--cell", "prefill_32k", "--smoke", "--repeat", "2",
+            "--mesh", "2x2", "--backend", "gloo", "--batch", str(LM_MESH_FAMILY_B),
+            "--seq", str(LM_MESH_FAMILY_S), "--dtype", "float32", "--kv-chunk", "8", "--top", "4"])
+        probe = t_probe.probe_lm(args, mesh=mesh)
+        cfg = _family_cfg(arch, mesh)
+        inputs = t_probe.serve_inputs(cfg, cell_by_name("prefill_32k"), LM_MESH_FAMILY_B,
+                                      LM_MESH_FAMILY_S, mesh.device)
+        cache = inputs.pop("cache")
+        cache = PT.shard_tree(cache, lm_ts.cache_shardings(cfg, cache, mesh))
+        params = PT.shard_tree(lm_model.init_params(cfg, t_random.PRNGKey(0), mesh.device),
+                               lm_ts.param_shardings(cfg, mesh))
+        prefill, _ = lm_ts.make_serve_steps(cfg, kv_chunk=8, mesh=mesh)
+        with torch.no_grad():
+            lg = PT.gather_tensor(prefill(params, cache=cache, **inputs)[0])
+        if not torch.equal(probe["result"], lg):
+            raise AssertionError(f"lm_mesh probe {arch} prefill: logits differ from the meshed "
+                                 f"serve's on the same inputs by "
+                                 f"{float((probe['result'] - lg).abs().max()):.3g}")
+        out[arch] = probe["lines"]
+        del params, cache
+    return out
 
 
 def _lm_mesh_pipeline(dev) -> dict:
@@ -3645,7 +3823,9 @@ def lm_mesh_ranks():
         _free()
         res["serve"] = _lm_mesh_serve(mesh, cfg, ref, dev)
         _free()
+        res["family_serve"] = _lm_mesh_family_serve(mesh, ref["family_serve"], main)
         if (d, m) == (2, 2):
+            res["probe_serve"] = _lm_mesh_probe_serve(mesh)
             res["pipeline"] = _lm_mesh_pipeline(dev)
             res["families"] = _lm_mesh_families(mesh, ref["families"], main)
         out[f"{d}x{m}"] = res
@@ -3707,8 +3887,12 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     families = lm_mesh_family_reference(dev)
     families_s = time.perf_counter() - t0
     _free()
+    t0 = time.perf_counter()
+    family_serve = lm_mesh_family_serve_reference(dev)
+    family_serve_s = time.perf_counter() - t0
     torch.save({"end": end, "moves": moves, "metrics": metrics, "prompt": prompt,
-                "next": nxt[:LM_MESH_TICKS], "logits": logits, "families": families},
+                "next": nxt[:LM_MESH_TICKS], "logits": logits, "families": families,
+                "family_serve": family_serve},
                os.path.join(LM_MESH_DIR, "ref.pt"))
     t0 = time.perf_counter()
     ranks = spawn_ranks(lm_mesh_ranks, 4, work_dir=os.path.join(LM_MESH_DIR, "ranks"),
@@ -3766,6 +3950,34 @@ def lm_mesh_phase(dev, smi: str) -> dict:
               f"{f['param_max_diff_in_lr']:.3g} lr, RMS {f['param_rms_diff_of_move']:.3g} of "
               f"the move (tolerance {LM_TRAIN_PARAM_RMS}; worst {f['worst_rms_leaf']}); step ms/rank {[[round(v, 1) for v in x] for x in out['families'][arch]['step_ms']]}; "
               f"{f['seconds']:.1f} s", flush=True)
+    out["family_serve"] = {"one_process_s": family_serve_s}
+    for arch in LM_MESH_SERVE_FAMILIES:
+        for d, m in LM_MESH_FACTORS:
+            f = f"{d}x{m}"
+            one = family_serve[f"{arch}@{f}"]
+            r = ranks[0][f]["family_serve"][arch]
+            out["family_serve"][f"{arch}@{f}"] = dict(
+                r, one_process_prefill_ms=one["prefill_ms"],
+                one_process_decode_tick_ms=one["decode_tick_ms"],
+                seconds_per_rank=[x[f]["family_serve"][arch]["seconds"] for x in ranks])
+            print(f"  {arch} smoke serve (f32, {LM_MESH_FAMILY_B} rows, "
+                  f"{LM_MESH_SERVE_PROMPT.get(arch, 13)} tokens, extras where taken, "
+                  f"{LM_MESH_SERVE_CACHE} cache positions, {LM_MESH_SERVE_TICKS} ticks) at {f}, 4 "
+                  f"ranks sharing one card over gloo ({smi}): logits err/max "
+                  f"{[f'{e:.2g}' for e in r['logit_err_of_max']]} (tolerance {LM_MESH_LOGITS}), "
+                  f"near ties {r['near_ties']}; cache leaves within {r['cache_err_of_max']:.3g} "
+                  f"of the leaf's largest (tolerance {LM_MESH_CACHE_HOLD}; worst "
+                  f"{r['worst_cache_leaf']}); rank 0 prefill {r['prefill_ms']:.1f} ms, median "
+                  f"tick {float(np.median(r['decode_tick_ms'])):.1f} ms (one process "
+                  f"{one['prefill_ms']:.1f} / {float(np.median(one['decode_tick_ms'])):.1f} ms); "
+                  f"{r['seconds']:.1f} s", flush=True)
+    out["2x2"]["probe_serve"] = two["probe_serve"]
+    for arch, lines in two["probe_serve"].items():
+        print(f"  collective probe (rank 0), {arch} smoke prefill_32k cell at 2x2 on the "
+              f"reference's specs' inputs, logits equal to the meshed serve's prefill:",
+              flush=True)
+        for line in lines:
+            print(f"    {line}", flush=True)
     print(f"  2x2 checkpoint: saved in {two['ckpt_save_s']:.1f} s (gathered leaf by leaf, "
           f"rank 0 writes), each rank's sharded restore == its blocks, restored in one "
           f"process (rank 0, no shardings) == the gathered state, leaf by leaf; "
@@ -3963,7 +4175,8 @@ def main() -> int:
     phase("lm_mesh: LM sharding, llama3.2-3b full width 2 layers f32, DTensor steps on "
           "2x2 and 1x4 (4 ranks sharing the card over gloo) vs one process, the sharded "
           "checkpoint, the collective probe, the pipeline; the smoke train steps of "
-          "minicpm3-4b, xlstm-125m, whisper-tiny and internvl2-76b at 2x2")
+          "minicpm3-4b, xlstm-125m, whisper-tiny and internvl2-76b at 2x2; the smoke serve "
+          "steps of the six other families at 2x2 and 1x4, the probe's serve cells")
     reset_counts()
     lm_mesh = lm_mesh_phase(dev, smi_line)
     if any(read_counts().values()):

@@ -18,13 +18,18 @@ kind (train, prefill or decode, built as the reference's dry run builds
 it: its profile choices, ``moe_groups`` tiled to the data shards, the
 trunk cut to ``--repeat`` units) for the arch on the real ``--mesh DxM``
 process mesh, at ``--batch`` rows of ``--seq`` tokens (``--smoke`` for the
-arch's smoke config), from ``PRNGKey(0)`` params and seeded tokens. Every
+arch's smoke config), from ``PRNGKey(0)`` params and seeded tokens; a serve
+cell takes the inputs the reference's specs declare (:func:`serve_inputs`:
+whisper's frames, the VLM's prefix embeds and its longer cache). Every
 collective DTensor issues is recorded with its kind, type, result shape and
 group (``utils.tracing.dtensor_collectives``, whose ``CommDebugMode``
 gives the counts by op) and the report prices them by the same ring model:
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.collective_probe \
         --arch llama3.2-3b --cell train_4k --smoke --batch 4 --seq 32 --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.collective_probe \
+        --arch whisper-tiny --cell prefill_32k --smoke --repeat 2 --batch 4 --seq 16 \
+        --dtype float32 --kv-chunk 8 --backend gloo --device cpu
 """
 from __future__ import annotations
 
@@ -128,11 +133,11 @@ def probe_lm(args: argparse.Namespace, mesh=None, state=None) -> Dict[str, objec
                               + len(cfg.layout_tail))
     B, S = args.batch, args.seq
     dev = mesh.device
-    g = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
     key = _random.PRNGKey(0)
     out: Dict[str, object] = {}
     if cell.kind == "train":
+        g = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
         opt_cfg = OPT.OptConfig(name=OPT.default_opt_for(cfg.n_params()))
         if state is None:
             state = TS.init_state(cfg, opt_cfg, key, dev,
@@ -146,16 +151,17 @@ def probe_lm(args: argparse.Namespace, mesh=None, state=None) -> Dict[str, objec
     else:
         params = PT.shard_tree(M.init_params(cfg, key, dev),
                                TS.param_shardings(cfg, mesh, prof))
-        cache = M.init_cache(cfg, B, S, torch.bfloat16, dev)
+        inputs = serve_inputs(cfg, cell, B, S, dev)
+        cache = inputs.pop("cache")
         cache = PT.shard_tree(cache, TS.cache_shardings(cfg, cache, mesh, prof))
         prefill, decode = TS.make_serve_steps(cfg, kv_chunk=args.kv_chunk,
                                               cast_weights=prof.fsdp, mesh=mesh, prof=prof)
         if cell.kind == "prefill":
             def run():
-                return prefill(params, tokens[:, :S].to(dev), cache)[0]
+                return prefill(params, cache=cache, **inputs)[0]
         else:
             def run():
-                return decode(params, tokens[:, S].to(dev), S - 1, cache)[0]
+                return decode(params, cache=cache, **inputs)[0]
     with torch.no_grad() if cell.kind != "train" else contextlib.nullcontext():
         with collectives_recorded() as entries, dtensor_collectives() as comm:
             res = run()
@@ -171,6 +177,34 @@ def probe_lm(args: argparse.Namespace, mesh=None, state=None) -> Dict[str, objec
     out.update(entries=list(entries), counts=counts, lines=lines,
                result=({k: float(v) for k, v in res.items()} if isinstance(res, dict)
                        else PT.gather_tensor(res)))
+    return out
+
+
+def serve_inputs(cfg, cell, batch: int, seq: int, device) -> Dict[str, object]:
+    """A prefill or decode cell's inputs at ``batch`` rows of ``seq`` tokens,
+    as the reference's dry run declares them (``launch.specs``): seeded
+    tokens; for a prefill the encoder-decoder's ``frames`` (batch,
+    enc_seq, d) or the VLM's prefix ``embeds`` (batch, frontend_len, d),
+    seeded normals in ``cfg.dtype``; a bf16 cache of ``seq`` positions and
+    the VLM's prefix; a decode's position is the last of them. Every
+    tensor whole, on ``device``; the same values on every rank."""
+    import dataclasses
+
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.models import model as M
+
+    sp = SPECS.input_specs(cfg, dataclasses.replace(cell, global_batch=batch, seq_len=seq))
+    prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
+    cache = M.init_cache(cfg, batch, seq + prefix, torch.bfloat16, device)
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g)
+    if cell.kind == "decode":
+        return {"token": tokens[:, seq].to(device), "pos": prefix + seq - 1, "cache": cache}
+    out = {"tokens": tokens[:, :seq].to(device), "cache": cache}
+    for k in ("embeds", "frames"):
+        if k in sp:
+            out[k] = torch.randn(tuple(sp[k].shape), generator=g).to(
+                device=device, dtype=M.as_dtype(cfg.dtype))
     return out
 
 

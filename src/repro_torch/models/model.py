@@ -336,6 +336,16 @@ def _prefill_write(c: torch.Tensor, new: torch.Tensor) -> None:
         local(c)[:, :hi - lo] = new_l[:, lo:hi].to(c.dtype)
 
 
+def _ring_window(new: torch.Tensor, Sc: int) -> torch.Tensor:
+    """The last ``Sc`` positions of ``new`` (B, S, ...) in the ring buffer's
+    layout (slot = pos % Sc): the reference's ``jnp.roll`` of them by
+    ``S % Sc``, as two slices joined, since DTensor has no rule for
+    ``aten.roll`` in every torch release the port runs on."""
+    S = new.shape[1]
+    last, k = new[:, S - Sc:], S % Sc
+    return torch.cat([last[:, Sc - k:], last[:, :Sc - k]], dim=1) if k else last
+
+
 def _mlstm_prefill(h, p, cfg, cache):
     """The train pass, and the final state recomputed by one chunked pass
     with q = 0 from the cache's state."""
@@ -381,10 +391,7 @@ def _run_block_prefill(kind, x, p, cache, cfg, positions, shared, enc_out, kv_ch
         out, (a, b) = L.gqa_prefill(h, p["attn"], cfg, positions, kv_chunk)
         Sc = cache[0].shape[1]
         if cfg.sliding_window and kind != "shared_attn" and a.shape[1] > Sc:
-            # keep the last `window` positions (ring-buffer layout: slot = pos % Sc)
-            S = a.shape[1]
-            a = torch.roll(a[:, S - Sc:], shifts=S % Sc, dims=1)
-            b = torch.roll(b[:, S - Sc:], shifts=S % Sc, dims=1)
+            a, b = _ring_window(a, Sc), _ring_window(b, Sc)
     x = x + out
     if kind == "dec":
         ek, ev = _cross_kv(enc_out, p, x.dtype)

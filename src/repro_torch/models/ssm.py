@@ -102,34 +102,48 @@ def chunked_lrnn(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 def lrnn_rows(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
               xv: torch.Tensor, h0: torch.Tensor, chunk: int = 256
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`chunked_lrnn`; on DTensors, on each rank's batch rows as plain
-    tensors (the rows are independent), every other dim whole, the outputs
-    DTensors placed so: DTensor's propagation through the recurrence's
+    """:func:`chunked_lrnn`; on DTensors, on each rank's batch rows
+    (:func:`_on_rows`): DTensor's propagation through the recurrence's
     einsums fails a view of a permuted local block in the backward on torch
     2.11 (ROADMAP Queue 3 item 14). Plain tensors go straight through."""
     if not is_sharded(b):
         return chunked_lrnn(log_a, b, c, xv, h0, chunk)
+    return _on_rows(lambda *t: chunked_lrnn(*t, chunk), (log_a, b, c, xv, h0), b)
+
+
+def _on_rows(fn, tensors, like) -> Tuple[torch.Tensor, ...]:
+    """``fn`` of ``tensors`` on each rank's batch rows as plain tensors (the
+    rows are independent), every other dim whole; the outputs DTensors
+    placed so (rows sharded as ``like``'s, the rest replicated)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    dm = b.device_mesh
-    want = [Shard(0) if pl.is_shard(0) else Replicate() for pl in b.placements]
-    rows = local_slices(b.shape, dm, want)[0]
+    dm = like.device_mesh
+    want = [Shard(0) if pl.is_shard(0) else Replicate() for pl in like.placements]
+    rows = local_slices(like.shape, dm, want)[0]
 
     def block(t):
         if is_sharded(t):
             return contiguous_grad(t.redistribute(dm, want).to_local())
         return t[rows]
 
-    y, h = chunked_lrnn(*(block(t) for t in (log_a, b, c, xv, h0)), chunk)
-    return tuple(DTensor.from_local(t.contiguous(), dm, want, run_check=False)
-                 for t in (y, h))
+    out = fn(*(block(t) for t in tensors))
+    return tuple(DTensor.from_local(t.contiguous(), dm, want, run_check=False) for t in out)
 
 
 def lrnn_decode_step(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                      xv: torch.Tensor, h: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One recurrence step. log_a: (B, h); b, c: (B, h, N); xv: (B, h, P);
-    h: (B, h, N, P). Returns (y (B, h, P), new h), float32."""
+    h: (B, h, N, P). Returns (y (B, h, P), new h), float32. On DTensors, on
+    each rank's batch rows (:func:`_on_rows`): the einsum's view merges the
+    sharded batch and head dims, which torch 2.11 refuses (ROADMAP Queue 3
+    item 14)."""
+    if is_sharded(h):
+        return _on_rows(_lrnn_decode_step, (log_a, b, c, xv, h), h)
+    return _lrnn_decode_step(log_a, b, c, xv, h)
+
+
+def _lrnn_decode_step(log_a, b, c, xv, h):
     hn = torch.exp(log_a.to(F32))[..., None, None] * h.to(F32) + torch.einsum(
         "bhk,bhp->bhkp", b.to(F32), xv.to(F32))
     y = torch.einsum("bhk,bhkp->bhp", c.to(F32), hn)
@@ -206,7 +220,10 @@ def _mamba_run(x, p, cfg, h0, conv_state, chunk):
         xbc_ext = torch.cat([conv_state, xbc], dim=1)
         new_conv = xbc_ext[:, -(cfg.conv_width - 1):, :]
         K = p["conv_w"].shape[0]
-        pad = F.pad(xbc_ext, (0, 0, max(K - 1 - conv_state.shape[1], 0), 0))
+        short = K - 1 - conv_state.shape[1]
+        # a padding of nothing (the cache's window is full) is skipped: on a
+        # DTensor it fails the redistribution in torch 2.11
+        pad = F.pad(xbc_ext, (0, 0, short, 0)) if short > 0 else xbc_ext
         w = p["conv_w"].to(dt_)
         out = 0
         for k in range(K):

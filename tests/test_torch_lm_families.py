@@ -31,6 +31,7 @@ Tolerances (2 rows, 10 tokens, a prefix of 8 embeds or 16 frames):
   logits, the increments within 1e-5.
 """
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,7 @@ from repro_torch import random as t_random
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.models import model as TM
 from repro_torch.models.params import tree_flatten
+from torch_lm_params import FAST_COMPILE
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FAMILY_ARCHS = ("xlstm-125m", "zamba2-7b", "whisper-tiny", "internvl2-76b")
@@ -119,14 +121,14 @@ def _reference(arch, dtype, params):
         enc = JM._run_encoder(p, jc, ex["frames"].astype(dt)) if "frames" in ex else None
         return x0, enc
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def train(p, tok, ex):
         x0, enc = trunk_in(p, tok, ex)
         x, _ = JM._run_trunk(x0, p, jc, "train", jnp.arange(x0.shape[1]),
                              shared=p.get("shared"), enc_out=enc, kv_chunk=KV_CHUNK)
         return JM.forward_train(p, jc, tok, kv_chunk=KV_CHUNK, **ex), x - x0
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def prefill(p, tok, cache, ex):
         x0, enc = trunk_in(p, tok, ex)
         x, _ = JM._run_trunk(x0, p, jc, "prefill", jnp.arange(x0.shape[1]), cache=cache,
@@ -134,7 +136,7 @@ def _reference(arch, dtype, params):
         last, cache = JM.prefill(p, jc, tok, cache, kv_chunk=KV_CHUNK, **ex)
         return last, x - x0, cache
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def decode(p, t, pos, cache):
         x0 = jnp.take(p["embed"]["embedding"].astype(dt), t, axis=0)
         x, _ = JM._run_trunk(x0, p, jc, "decode", None, cache=cache, pos=pos,

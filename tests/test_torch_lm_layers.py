@@ -21,6 +21,7 @@ from repro.models import moe as JMOE
 
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as TMOE
+from torch_lm_params import FAST_COMPILE
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-6
@@ -42,7 +43,7 @@ def _t(a):
 def _jit(fn, *args, **kw):
     """The reference's ``fn(*args, **kw)`` under one ``jax.jit`` (one compile
     instead of one per eager op), its keyword arguments static."""
-    return jax.jit(lambda *a: fn(*a, **kw))(*args)
+    return jax.jit(lambda *a: fn(*a, **kw), compiler_options=FAST_COMPILE)(*args)
 
 
 def test_rmsnorm():

@@ -19,6 +19,7 @@ Tolerances, and the figures measured on this CPU (2 rows, 10 tokens):
   is a tenth of the increment's largest value).
 """
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.params import tree_flatten
+from torch_lm_params import FAST_COMPILE
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 PARITY_ARCHS = ("llama3.2-3b", "qwen1.5-4b", "minicpm3-4b", "mixtral-8x22b", "internvl2-76b")
@@ -93,13 +95,13 @@ def _reference(arch, dtype, params):
     cdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tok = jnp.asarray(_tokens())
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def train(p, tok):
         x0 = JL.embed(tok, p["embed"], dt)
         x, _ = JM._run_trunk(x0, p, jc, "train", jnp.arange(S), kv_chunk=KV_CHUNK)
         return JM.forward_train(p, jc, tok, kv_chunk=KV_CHUNK), x - x0
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def prefill(p, tok, cache):
         x0 = JL.embed(tok, p["embed"], dt)
         x, _ = JM._run_trunk(x0, p, jc, "prefill", jnp.arange(tok.shape[1]), cache=cache,
@@ -107,7 +109,7 @@ def _reference(arch, dtype, params):
         last, cache = JM.prefill(p, jc, tok, cache, kv_chunk=KV_CHUNK)
         return last, x - x0, cache
 
-    @jax.jit
+    @partial(jax.jit, compiler_options=FAST_COMPILE)
     def decode(p, t, pos, cache):
         x0 = jnp.take(p["embed"]["embedding"].astype(dt), t, axis=0)
         x, _ = JM._run_trunk(x0, p, jc, "decode", None, cache=cache, pos=pos)

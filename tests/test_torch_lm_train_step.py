@@ -8,7 +8,11 @@ the non-finite step that leaves the state as it was, and the state
 carried across by ``convert``.
 
 Params come from the reference's ``init_params(PRNGKey(0))``, carried
-across by ``convert``; batches from the token stream (seed 0). Tolerances:
+across by ``convert`` (drawn eagerly for llama3.2-3b and zamba2-7b, whose
+shapes later tests draw eagerly again; by the port for the others, its draw
+equal to the reference's bit for bit, ``tests/torch_lm_params.py``); the
+reference's jits compile at ``FAST_COMPILE``; batches from the token stream
+(seed 0). Tolerances:
 - one loss and its grads: loss within 1e-5 relative, every leaf's grads
   within 1e-4 of that leaf's max |grad| (measured <= 3.8e-6, zamba2-7b;
   the others <= 9e-7). The port's trunk runs under remat "full".
@@ -45,11 +49,13 @@ from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.models.params import tree_flatten
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TTS
+from torch_lm_params import FAST_COMPILE, reference_params
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FAMILIES = {"dense": "llama3.2-3b", "moe": "mixtral-8x22b", "mla": "minicpm3-4b",
             "hybrid": "zamba2-7b", "ssm": "xlstm-125m", "encdec": "whisper-tiny",
             "vlm": "internvl2-76b"}
+EAGER_DRAWS = ("llama3.2-3b", "zamba2-7b")
 B, S, KV_CHUNK = 2, 16, 8
 STEP_KW = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 
@@ -80,12 +86,15 @@ def reference():
 
     def get(arch):
         if arch not in memo:
-            jc, _ = _cfgs(arch)
-            params = JM.init_params(jc, jax.random.PRNGKey(0))
+            jc, tc = _cfgs(arch)
+            # eager where a later test draws the same shapes eagerly (the
+            # steps, the state round trip), else the port's equal draw
+            params = (JM.init_params(jc, jax.random.PRNGKey(0)) if arch in EAGER_DRAWS
+                      else reference_params(tc))
             batch = _batch(jc)
             loss_fn = JTS.make_loss_fn(jc, JTS.TrainConfig(kv_chunk=KV_CHUNK))
-            (loss, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-                params, {k: jnp.asarray(v) for k, v in batch.items()})
+            vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True), compiler_options=FAST_COMPILE)
+            (loss, aux), grads = vg(params, {k: jnp.asarray(v) for k, v in batch.items()})
             memo[arch] = (jax.tree.map(np.asarray, params), batch, float(loss),
                           {k: float(v) for k, v in aux.items()},
                           jax.tree.map(np.asarray, grads))
@@ -158,7 +167,8 @@ def test_steps_match_reference(micro):
     state = JTS.init_state(jc, jo, jax.random.PRNGKey(0))
     start = jax.tree.map(np.asarray, state)
     step = jax.jit(JTS.make_train_step(jc, jo, JTS.TrainConfig(micro_steps=micro,
-                                                               kv_chunk=KV_CHUNK)))
+                                                               kv_chunk=KV_CHUNK)),
+                   compiler_options=FAST_COMPILE)
     t_state = convert.lm_state_from_numpy(start, tc, to, "cpu")
     t_step = TTS.make_train_step(tc, to, TTS.TrainConfig(micro_steps=micro, kv_chunk=KV_CHUNK))
     stream = TokenStream(jc.vocab_size, 4, S, seed=0)

@@ -45,6 +45,7 @@ from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TTS
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from torch_lm_params import FAST_COMPILE
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ARCH = "llama3.2-3b"
@@ -362,7 +363,8 @@ def _reference_trainer(ckpt_dir, total):
     cfg = j_smoke(ARCH)
     jo = JO.OptConfig(**OPT_KW)
     state = JTS.init_state(cfg, jo, jax.random.PRNGKey(0))
-    step = jax.jit(JTS.make_train_step(cfg, jo, JTS.TrainConfig(kv_chunk=8)))
+    step = jax.jit(JTS.make_train_step(cfg, jo, JTS.TrainConfig(kv_chunk=8)),
+                   compiler_options=FAST_COMPILE)
     tcfg = JTrainerConfig(total_steps=total, ckpt_every=2, ckpt_dir=str(ckpt_dir),
                           log_every=100)
     return JTrainer(step, state, JStream(cfg.vocab_size, 2, 16, seed=0), tcfg)

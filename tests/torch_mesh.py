@@ -186,13 +186,23 @@ def suite(ref_path, work_dir):
 # LM sharding: the DTensor train and serve steps on a 2x2 mesh
 # ---------------------------------------------------------------------------
 
-# dense, MoE, MLA, SSM, encoder-decoder (with frames), VLM prefix (with
-# embeds); the hybrid zamba2-7b is refused meshed (ROADMAP Queue 3 item 16)
+# the meshed train steps: dense, MoE, MLA, SSM, encoder-decoder (with
+# frames), VLM prefix (with embeds); the hybrid zamba2-7b's meshed training
+# is refused (ROADMAP Queue 3 item 16), its meshed serve steps are held
 LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b", "minicpm3-4b", "xlstm-125m", "whisper-tiny",
             "internvl2-76b")
+LM_SERVE_ARCHS = LM_ARCHS[:4] + ("zamba2-7b",) + LM_ARCHS[4:]
 LM_B, LM_S, LM_KV_CHUNK = 4, 16, 8
 LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
-LM_CACHE = 24
+# serve: a prompt of 13 tokens (it ends inside a rank's block of the cache's
+# positions) into a cache of 24 positions, 3 ticks; mixtral's prompt runs
+# past its sliding window (16), so the ring buffer rolls and wraps sharded;
+# internvl2's 8 prefix embeds, 13 tokens and the ticks fill its cache
+# (S + frontend_len + ticks)
+LM_CACHE, LM_TICKS = 24, 3
+LM_PROMPT = {"mixtral-8x22b": 18}   # 13 tokens otherwise
+# the collective probe's prefill cells, at LM_B rows of PROBE_S tokens
+PROBE_ARCHS, PROBE_S = ("whisper-tiny", "internvl2-76b"), 12
 PIPE = dict(R=8, B=16, D=32, n_micro=4)
 
 
@@ -239,8 +249,7 @@ def _lm_train(ref, arch, mesh, work_dir):
     c = lm_cfg(arch, mesh)
     opt_cfg = OPT.OptConfig(**LM_OPT)
     prof = PT.RunProfile()
-    flat = {k[len(arch) + 8:]: ref[k] for k in ref.files if k.startswith(f"{arch}.params.")}
-    params = _unflatten(flat)
+    params = _params(ref, arch)
     state = {"params": params, "opt": OPT.opt_init(params, opt_cfg),
              "step": torch.zeros((), dtype=torch.int32)}
     state = TS.shard_state(state, TS.state_shardings(c, opt_cfg, mesh, prof))
@@ -319,31 +328,64 @@ def _unflatten(flat):
     return tree
 
 
-def _lm_serve(ref, mesh):
-    """A sharded prefill and three decode ticks of llama (f32 cache), fed
-    the reference's greedy tokens."""
+def _params(ref, arch):
+    return _unflatten({k[len(arch) + 8:]: ref[k] for k in ref.files
+                       if k.startswith(f"{arch}.params.")})
+
+
+def _lm_serve(ref, arch, mesh):
+    """A sharded prefill of the reference's prompt (with the family's
+    frames or embeds) into an f32 cache and LM_TICKS decode ticks fed the
+    reference's greedy tokens: every tick's logits, and every cache leaf
+    after the last, gathered."""
     from repro_torch.models import model as M
     from repro_torch.sharding import partition as PT
     from repro_torch.train import train_step as TS
 
-    arch = "llama3.2-3b"
     c = lm_cfg(arch, mesh)
     prof = PT.RunProfile()
-    flat = {k[len(arch) + 8:]: ref[k] for k in ref.files if k.startswith(f"{arch}.params.")}
-    params = PT.shard_tree(_unflatten(flat), TS.param_shardings(c, mesh, prof))
+    params = PT.shard_tree(_params(ref, arch), TS.param_shardings(c, mesh, prof))
     cache = M.init_cache(c, LM_B, LM_CACHE, torch.float32, "cpu")
     cache = PT.shard_tree(cache, TS.cache_shardings(c, cache, mesh, prof))
     prefill, decode = TS.make_serve_steps(c, kv_chunk=LM_KV_CHUNK, mesh=mesh, prof=prof)
-    tokens = torch.from_numpy(ref["serve.tokens"]).long()
+    tokens = torch.from_numpy(ref[f"{arch}.serve.tokens"]).long()
+    extras = {k: torch.from_numpy(ref[f"{arch}.serve.{k}"]) for k in ("embeds", "frames")
+              if f"{arch}.serve.{k}" in ref.files}
+    pos = tokens.shape[1] + (extras["embeds"].shape[1] if "embeds" in extras else 0)
     logits = []
     with torch.no_grad():
-        lg, _ = prefill(params, tokens, cache)
+        lg, _ = prefill(params, tokens, cache, **extras)
         logits.append(PT.gather_tensor(lg).numpy())
-        for t in range(3):
-            tok = torch.from_numpy(ref[f"serve.next{t}"]).long()
-            lg, _ = decode(params, tok, tokens.shape[1] + t, cache)
+        for t in range(LM_TICKS):
+            tok = torch.from_numpy(ref[f"{arch}.serve.next{t}"]).long()
+            lg, _ = decode(params, tok, pos + t, cache)
             logits.append(PT.gather_tensor(lg).numpy())
-    return {"logits": np.stack(logits)}
+    return {"logits": np.stack(logits), "cache": _np_tree(cache)}
+
+
+def _probe_serve(ref, arch, mesh):
+    """The collective probe's prefill cell at 2x2 (the smoke config in f32,
+    its inputs from the reference's specs), and the meshed serve's prefill
+    of the reference's params on the same inputs: both logits, gathered."""
+    from repro_torch.configs import cell_by_name
+    from repro_torch.sharding import partition as PT
+    from repro_torch.train import train_step as TS
+
+    args = t_probe.parse_args([
+        "--arch", arch, "--cell", "prefill_32k", "--smoke", "--repeat", "2", "--mesh", "2x2",
+        "--backend", "gloo", "--device", "cpu", "--batch", str(LM_B), "--seq", str(PROBE_S),
+        "--dtype", "float32", "--kv-chunk", str(LM_KV_CHUNK)])
+    probe = t_probe.probe_lm(args, mesh=mesh)
+    c = lm_cfg(arch, mesh)
+    inputs = t_probe.serve_inputs(c, cell_by_name("prefill_32k"), LM_B, PROBE_S, "cpu")
+    cache = inputs.pop("cache")
+    prof = PT.RunProfile()
+    cache = PT.shard_tree(cache, TS.cache_shardings(c, cache, mesh, prof))
+    params = PT.shard_tree(_params(ref, arch), TS.param_shardings(c, mesh, prof))
+    prefill, _ = TS.make_serve_steps(c, kv_chunk=LM_KV_CHUNK, mesh=mesh, prof=prof)
+    with torch.no_grad():
+        lg, _ = prefill(params, cache=cache, **inputs)
+    return {"probe": probe["result"].numpy(), "serve": PT.gather_tensor(lg).numpy()}
 
 
 def _lrnn_rows(mesh):
@@ -378,6 +420,29 @@ def _lrnn_rows(mesh):
 
     return {"y": rel(y2, y), "h": rel(h2, h),
             **{f"grad{i}": rel(d.grad, w.grad) for i, (d, w) in enumerate(zip(dts, whole))}}
+
+
+def _lrnn_decode(mesh):
+    """``ssm.lrnn_decode_step`` on DTensors placed as the Mamba2 decode's
+    (the state's rows over the data axis, its heads over the model axis)
+    against the step on the whole tensors, seeded: each output's largest
+    difference over its largest value."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import ssm
+    from repro_torch.sharding import partition as PT
+
+    g = torch.Generator().manual_seed(4)
+    B, H, N, P = 4, 4, 8, 8
+    whole = [-2 * torch.rand(B, H, generator=g)] + [
+        torch.randn(*shape, generator=g) for shape in ((B, H, N), (B, H, N), (B, H, P),
+                                                       (B, H, N, P))]
+    y, h = ssm.lrnn_decode_step(*whole)
+    dm = PT.device_mesh(mesh)
+    y2, h2 = ssm.lrnn_decode_step(*(distribute_tensor(t, dm, [Shard(0), Shard(1)])
+                                    for t in whole))
+    return {k: float((PT.gather_tensor(a) - b).abs().max() / b.abs().max())
+            for k, a, b in (("y", y2, y), ("h", h2, h))}
 
 
 def _pipeline(ref):
@@ -443,8 +508,10 @@ def lm_suite(ref_path, work_dir):
     ref = np.load(ref_path)
     mesh = make_mesh_2d(2, 2, device="cpu", backend="gloo")
     out = {arch: _lm_train(ref, arch, mesh, work_dir) for arch in LM_ARCHS}
-    out["serve"] = _lm_serve(ref, mesh)
+    out["serve"] = {arch: _lm_serve(ref, arch, mesh) for arch in LM_SERVE_ARCHS}
+    out["probe"] = {arch: _probe_serve(ref, arch, mesh) for arch in PROBE_ARCHS}
     out["lrnn_rows"] = _lrnn_rows(mesh)
+    out["lrnn_decode"] = _lrnn_decode(mesh)
     out["pipeline"] = _pipeline(ref)
     d = os.path.join(work_dir, "lm_launch")
     args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "4", "--seq", "16",
