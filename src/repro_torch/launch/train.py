@@ -81,13 +81,6 @@ NO_STREAM_INPUTS = {
     "internvl2-76b": "the VLM's logits start with a prefix of image embeds "
                      "(batch['embeds']), and the stream's labels cover only the tokens.",
 }
-# The archs whose meshed train step is not yet held to the reference.
-MESH_UNCHECKED = {
-    "zamba2-7b": "its 2x2 DTensor step matches the reference's loss and grads, but "
-                 "two AdamW steps move one norm-scale element whose grad sits at "
-                 "AdamW's eps apart by 0.02 lr, twice the params' RMS tolerance "
-                 "(ROADMAP Queue 3 item 16)",
-}
 
 
 def train_tnn(args: argparse.Namespace) -> Dict[str, Any]:
@@ -243,9 +236,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  f"carries no such input, and the reference launcher fails the same "
                  f"way (ROADMAP Queue 3 item 15); train it through "
                  f"train_step.make_train_step with the input in the batch")
-    if args.mesh and args.arch in MESH_UNCHECKED:
-        ap.error(f"--mesh with --arch {args.arch} is refused: "
-                 f"{MESH_UNCHECKED[args.arch]}; train it in one process")
     if args.production_mesh and args.arch != "tnn-mnist":
         ap.error(f"--production-mesh {args.production_mesh} is the reference's "
                  f"{PRODUCTION[args.production_mesh]}: a process mesh of that size "

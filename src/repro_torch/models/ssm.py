@@ -180,11 +180,28 @@ def _mamba_split(cfg):
     return d_in, N, heads
 
 
+def pad_seq(x: torch.Tensor, before: int) -> torch.Tensor:
+    """``F.pad(x, (0, 0, before, 0))``: ``before`` zeros ahead of the
+    sequence (dim 1). On a DTensor each rank pads its own block (the
+    sequence dim made whole first, where it is sharded, and partial sums
+    reduced), so no pad op sees a DTensor: DTensor's redistribution fails
+    on ``F.pad`` in torch 2.11 (ROADMAP Queue 3 item 14)."""
+    if not is_sharded(x):
+        return F.pad(x, (0, 0, before, 0))
+    from torch.distributed.tensor import DTensor, Replicate
+
+    want = [Replicate() if pl.is_partial() or pl.is_shard(1) else pl for pl in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    block = F.pad(contiguous_grad(x.to_local()), (0, 0, before, 0))
+    return DTensor.from_local(block, x.device_mesh, want, run_check=False)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d along the sequence, then SiLU. xbc: (B, S, C);
     w: (K, C)."""
     K = w.shape[0]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    pad = pad_seq(xbc, K - 1)
     out = torch.zeros_like(xbc)
     for k in range(K):
         out = out + pad[:, k:k + xbc.shape[1], :] * w[k]
@@ -221,9 +238,8 @@ def _mamba_run(x, p, cfg, h0, conv_state, chunk):
         new_conv = xbc_ext[:, -(cfg.conv_width - 1):, :]
         K = p["conv_w"].shape[0]
         short = K - 1 - conv_state.shape[1]
-        # a padding of nothing (the cache's window is full) is skipped: on a
-        # DTensor it fails the redistribution in torch 2.11
-        pad = F.pad(xbc_ext, (0, 0, short, 0)) if short > 0 else xbc_ext
+        # a padding of nothing (the cache's window is full) is skipped
+        pad = pad_seq(xbc_ext, short) if short > 0 else xbc_ext
         w = p["conv_w"].to(dt_)
         out = 0
         for k in range(K):

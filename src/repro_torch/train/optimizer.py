@@ -106,12 +106,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> float:
+    """``min(1, max_norm / max(norm, 1e-9))`` in float32, as the Python
+    float the clip multiplies by."""
+    return _scalar(torch.minimum(_f32(1.0), _f32(max_norm) / torch.clamp_min(
+        norm.cpu(), _f32(1e-9))))
+
+
 def clip_by_global_norm(tree, max_norm: float):
-    """Scale every leaf, in place, by ``min(1, max_norm / max(norm, 1e-9))``.
+    """Scale every leaf, in place, by :func:`clip_scale` of the global norm.
     Returns ``(tree, norm)``, the norm before clipping."""
     norm = global_norm(tree)
-    scale = _scalar(torch.minimum(_f32(1.0), _f32(max_norm) / torch.clamp_min(
-        norm.cpu(), _f32(1e-9))))
+    scale = clip_scale(norm, max_norm)
     if scale != 1.0:               # a multiply by 1 changes no bit
         for leaf in _leaves(tree):
             local(leaf).mul_(scale)
@@ -195,6 +201,26 @@ def adamw_update(grads, state, params, cfg: OptConfig):
         p.sub_(step)
         del step
     return params, state
+
+
+DETERMINED_EPS = 10.0   # adamw_determined's floor on sqrt(v-hat), in eps
+
+
+def adamw_determined(vs, counts, cfg: OptConfig) -> torch.Tensor:
+    """The elements of a leaf whose AdamW steps the data determines: where
+    the bias-corrected ``sqrt(v / (1 - b2 ** count))`` is at least
+    DETERMINED_EPS eps in every one of the given second moments ``vs`` (each
+    after the step whose ``count`` is given). Below that the denominator is
+    eps-level and the update is linear in the grad with a gain of ``lr /
+    eps``, so a rounding-level grad (one that is zero in exact arithmetic)
+    moves the param by a fraction of ``lr``. A bool tensor of the leaf's
+    shape."""
+    out = None
+    for v, count in zip(vs, counts):
+        corrected = v.double() / (1.0 - cfg.b2 ** int(count))
+        ok = corrected.sqrt() >= DETERMINED_EPS * cfg.eps
+        out = ok if out is None else out & ok
+    return out
 
 
 # ---------------------------------------------------------------------------

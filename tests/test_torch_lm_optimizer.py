@@ -161,6 +161,21 @@ def test_one_update(name, tol, compress):
         assert (a != b).mean() > 0.9, path
 
 
+def test_adamw_determined_sets_aside_eps_level_elements():
+    """``adamw_determined`` keeps an element only where the bias-corrected
+    ``sqrt(v / (1 - b2^count))`` is at least 10 eps (1e-7) after every
+    given step: 9e-8 at either step sets it aside, 1.1e-7 at both keeps it."""
+    cfg = T.OptConfig(**CFG)
+    roots = {1: [9e-8, 1.1e-7, 1e-3, 1e-3, 0.0], 2: [1.0, 1.1e-7, 9e-8, 1.1e-7, 1.0]}
+    vs = [torch.tensor(roots[c], dtype=torch.float64) ** 2 * (1 - cfg.b2 ** c)
+          for c in (1, 2)]
+    vs = [v.float() for v in vs]
+    got = T.adamw_determined(vs, (1, 2), cfg)
+    assert got.dtype == torch.bool and got.tolist() == [False, True, False, True, False]
+    assert T.adamw_determined(vs[:1], (1,), cfg).tolist() == [False, True, True, True, False]
+    assert T.adamw_determined(vs[1:], (2,), cfg).tolist() == [True, True, False, True, True]
+
+
 def test_state_layout_and_default():
     params = {"w": torch.zeros(64, 32), "s": torch.zeros(3, 8, 4), "v": torch.zeros(16)}
     ad = T.opt_init(params, T.OptConfig())

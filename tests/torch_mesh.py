@@ -3,6 +3,8 @@
 limit), and :func:`suite` is what every rank runs. It imports only torch and
 the port, so a rank starts in about a second; the JAX reference is computed
 once in the test module and handed over as an ``.npz``."""
+import dataclasses
+import math
 import os
 
 import numpy as np
@@ -186,12 +188,10 @@ def suite(ref_path, work_dir):
 # LM sharding: the DTensor train and serve steps on a 2x2 mesh
 # ---------------------------------------------------------------------------
 
-# the meshed train steps: dense, MoE, MLA, SSM, encoder-decoder (with
-# frames), VLM prefix (with embeds); the hybrid zamba2-7b's meshed training
-# is refused (ROADMAP Queue 3 item 16), its meshed serve steps are held
-LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b", "minicpm3-4b", "xlstm-125m", "whisper-tiny",
-            "internvl2-76b")
-LM_SERVE_ARCHS = LM_ARCHS[:4] + ("zamba2-7b",) + LM_ARCHS[4:]
+# the meshed train and serve steps of one arch a family: dense, MoE, MLA,
+# SSM, hybrid, encoder-decoder (with frames), VLM prefix (with embeds)
+LM_ARCHS = ("llama3.2-3b", "mixtral-8x22b", "minicpm3-4b", "xlstm-125m", "zamba2-7b",
+            "whisper-tiny", "internvl2-76b")
 LM_B, LM_S, LM_KV_CHUNK = 4, 16, 8
 LM_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 # serve: a prompt of 13 tokens (it ends inside a rank's block of the cache's
@@ -288,6 +288,42 @@ def _lm_train(ref, arch, mesh, work_dir):
     return out
 
 
+def _lm_opt_forced(ref, arch, mesh):
+    """``optimizer.opt_update`` fed the reference's params and AdamW state
+    after its step 1 and its step-2 grads (taken at those params) scaled by
+    the reference's step-2 clip scale, the update's own clip off (so the
+    float32 norms' sum orders cannot move the scale): on DTensors placed by
+    ``state_shardings``, and in one process on the same inputs as plain
+    tensors. Both updates' params, m and v, gathered, and both norms of the
+    raw grads."""
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.sharding import partition as PT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    opt_cfg = OPT.OptConfig(**LM_OPT)
+    sh = TS.state_shardings(lm_cfg(arch, mesh), opt_cfg, mesh, PT.RunProfile())
+    scale = float(ref[f"{arch}.scale2"])
+    out = {}
+    for where in ("mesh", "one"):
+        one = {what: _tree(ref, f"{arch}.{what}.") for what in ("p1", "m1", "v1", "g2")}
+        state = {"params": one["p1"], "opt": {"m": one["m1"], "v": one["v1"],
+                                              "count": torch.ones((), dtype=torch.int32)}}
+        grads = one["g2"]
+        if where == "mesh":
+            state = TS.shard_state(state, sh)
+            grads = TS.shard_state({"params": grads}, sh)["params"]
+        norm = float(OPT.global_norm(grads))
+        for _, g in tree_flatten(grads):
+            PT.local(g).mul_(scale)
+        OPT.opt_update(grads, state["opt"], state["params"],
+                       dataclasses.replace(opt_cfg, clip_norm=math.inf))
+        out[where] = _np_tree({"params": state["params"], "m": state["opt"]["m"],
+                               "v": state["opt"]["v"], "count": state["opt"]["count"]})
+        out[where]["grad_norm"] = norm
+    return out
+
+
 def _adafactor(c, params, grads, mesh, prof):
     """One Adafactor update with int8 compression on the sharded params and
     grads, and the same update unmeshed on their gathered copies: the
@@ -328,9 +364,13 @@ def _unflatten(flat):
     return tree
 
 
+def _tree(ref, prefix):
+    """The ``.npz`` entries under ``prefix``, as nested float32 tensors."""
+    return _unflatten({k[len(prefix):]: ref[k] for k in ref.files if k.startswith(prefix)})
+
+
 def _params(ref, arch):
-    return _unflatten({k[len(arch) + 8:]: ref[k] for k in ref.files
-                       if k.startswith(f"{arch}.params.")})
+    return _tree(ref, f"{arch}.params.")
 
 
 def _lm_serve(ref, arch, mesh):
@@ -422,6 +462,50 @@ def _lrnn_rows(mesh):
             **{f"grad{i}": rel(d.grad, w.grad) for i, (d, w) in enumerate(zip(dts, whole))}}
 
 
+def _mamba_conv(mesh):
+    """``ssm._causal_conv`` on DTensors placed as in the Mamba2 train step
+    (rows over the data axis, channels over the model axis; the conv
+    weights' channels over the model axis) against the conv on the whole
+    tensors, seeded: the output and every input's grad, each as its largest
+    difference over its largest value; and whether any pad op was handed a
+    DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.models import ssm
+    from repro_torch.sharding import partition as PT
+
+    class Pads(TorchFunctionMode):
+        saw_dtensor = False
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if "pad" in getattr(func, "__name__", "") and any(
+                    isinstance(a, DTensor) for a in args):
+                Pads.saw_dtensor = True
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(5)
+    B, S, C, K = 4, 12, 8, 4
+    whole = [torch.randn(*shape, generator=g).requires_grad_()
+             for shape in ((B, S, C), (K, C), (C,))]
+    gy = torch.randn(B, S, C, generator=g)
+    y = ssm._causal_conv(*whole)
+    (y * gy).sum().backward()
+    dm = PT.device_mesh(mesh)
+    dts = [distribute_tensor(t.detach(), dm, pl).requires_grad_() for t, pl in zip(
+        whole, ([Shard(0), Shard(2)], [Replicate(), Shard(1)], [Replicate(), Shard(0)]))]
+    with Pads():
+        y2 = ssm._causal_conv(*dts)
+        (y2 * distribute_tensor(gy, dm, y2.placements)).sum().backward()
+
+    def rel(a, b):
+        return float((PT.gather_tensor(a.detach()) - b.detach()).abs().max()
+                     / b.detach().abs().max())
+
+    return {"y": rel(y2, y), "pad_saw_dtensor": Pads.saw_dtensor,
+            **{f"grad{i}": rel(d.grad, w.grad) for i, (d, w) in enumerate(zip(dts, whole))}}
+
+
 def _lrnn_decode(mesh):
     """``ssm.lrnn_decode_step`` on DTensors placed as the Mamba2 decode's
     (the state's rows over the data axis, its heads over the model axis)
@@ -508,10 +592,12 @@ def lm_suite(ref_path, work_dir):
     ref = np.load(ref_path)
     mesh = make_mesh_2d(2, 2, device="cpu", backend="gloo")
     out = {arch: _lm_train(ref, arch, mesh, work_dir) for arch in LM_ARCHS}
-    out["serve"] = {arch: _lm_serve(ref, arch, mesh) for arch in LM_SERVE_ARCHS}
+    out["opt_forced"] = {arch: _lm_opt_forced(ref, arch, mesh) for arch in LM_ARCHS}
+    out["serve"] = {arch: _lm_serve(ref, arch, mesh) for arch in LM_ARCHS}
     out["probe"] = {arch: _probe_serve(ref, arch, mesh) for arch in PROBE_ARCHS}
     out["lrnn_rows"] = _lrnn_rows(mesh)
     out["lrnn_decode"] = _lrnn_decode(mesh)
+    out["mamba_conv"] = _mamba_conv(mesh)
     out["pipeline"] = _pipeline(ref)
     d = os.path.join(work_dir, "lm_launch")
     args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "4", "--seq", "16",
@@ -519,5 +605,10 @@ def lm_suite(ref_path, work_dir):
     t_train.main(args + ["--steps", "1"])
     tr = t_train.main(args + ["--steps", "2"])["trainer"]
     out["launch"] = {"state": _np_tree(tr.state), "step": tr.step}
+    d = os.path.join(work_dir, "lm_launch_hybrid")
+    tr = t_train.main(["--arch", "zamba2-7b", "--smoke", "--batch", "4", "--seq", "16",
+                       "--steps", "1", "--ckpt-dir", d, "--device", "cpu"]
+                      + MESH_ARGS)["trainer"]
+    out["launch_hybrid"] = {"state": _np_tree(tr.state), "step": tr.step}
     out["gloo_cuda_equal"] = _gloo_cuda_check(mesh)
     return out
