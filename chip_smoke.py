@@ -224,13 +224,16 @@ scale, lies within LM_MESH_ULPS float32 ulps of its step 2 on every
 element, each rank reading its own blocks. zamba2-7b at full width cut to
 one layout unit and the tail (LM_MESH_HYBRID_LAYERS = 9 layers,
 1,058,732,160 parameters, f32, AdamW, 4 x 128) trains two steps in one
-process on the card, then sharded at 2x2, held to it, except that the
-0.25 lr max over the elements the rule sets aside and the meshed step 2's
-own grad norm are printed, not held: its meshed grads, within LM_MESH_GRAD
-of each leaf's largest, differ by more than eps at elements whose grads
-are below eps, and there the first AdamW step moves a param by up to lr /
-eps times the difference, 0.82 lr apart on the H100 (an open failure,
-ROADMAP Queue 3 item 17). The train launcher trains
+process on the card, then sharded at 2x2, held to it. Its meshed grads,
+within LM_MESH_GRAD of each leaf's largest, differ by more than eps at
+elements whose grads are below eps, and there the first AdamW step moves a
+param by up to lr / eps times the difference (0.82 lr apart on the H100),
+and the next step's grads with it. So the elements the rule sets aside are
+held by AdamW's own bound (optimizer.adamw_step_bound) on both runs' g, m
+and v after each step, at LM_MESH_ULPS, and the meshed step 2 from its own
+inputs: its own grad norm within LM_TRAIN_METRIC_REL of one process's at
+the meshed params after step 1 (ROADMAP Queue 3 item 17, closed). The
+train launcher trains
 smoke zamba2-7b for one step under --mesh 2x2, its checkpoint the state it
 holds.
 
@@ -2756,7 +2759,8 @@ def lm_batch_drift(cfg, params, dev, steps: int = 8, B: int = 4, S: int = 12) ->
 
 def _free() -> None:
     gc.collect()
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def lm_prefix_serving(dev, steps: int = 4) -> dict:
@@ -3388,6 +3392,12 @@ LM_MESH_GRAD = 1e-4   # step-1 grads: of each leaf's largest |grad| (the CPU tes
 # moments, step-2 grads and clip scale, within LM_MESH_ULPS float32 ulps of
 # its step 2 on every element (the CPU tests' AdamW tolerance)
 LM_MESH_ULPS = 2
+# the Adafactor counterpart of the forced AdamW hold: its row and column
+# means over sharded dims sum in another order, so LM_MESH_ULPS (an
+# elementwise update, measured 0) has none; the meshed Adafactor update is
+# held as the CPU tests hold it against the unmeshed one: every leaf within
+# 1e-5 of its largest |value| (tests/test_torch_lm_mesh.py)
+LM_MESH_ADAFACTOR = 1e-5
 # slice 15: the hybrid at full width (d_model 3,584, vocab 32,000) cut to one
 # layout unit (5 Mamba2 layers and the shared attention) and the 3-layer
 # tail, float32, AdamW, LM_MESH_B x LM_MESH_S: one process, then two steps
@@ -3473,20 +3483,27 @@ def _unpack_bits(packed: torch.Tensor, shape, dev) -> torch.Tensor:
     return bits.reshape(-1)[:math.prod(shape)].view(shape)
 
 
-def lm_rule(start: dict, v1: dict, end: dict, v2: dict, dev) -> dict:
+def lm_rule(start: dict, v1, end: dict, v2, dev) -> dict:
     """The set-aside rule on one process's two AdamW steps, per leaf (host
     ``{path: tensor}`` copies in, one leaf at a time on ``dev``): the
     elements it determines (``optimizer.adamw_determined`` on the second
     moments after steps 1 and 2; packed bits), how many it sets aside, and
-    the RMS move from ``start`` to ``end`` over the determined ones."""
+    the RMS move from ``start`` to ``end`` over the determined ones. With
+    ``v1`` None (Adafactor: no eps in its denominator) every element is
+    determined."""
     cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
     out = {}
     for path, p in end.items():
-        det = lm_opt.adamw_determined([v1[path].to(dev), v2[path].to(dev)], (1, 2), cfg)
-        moved = (p.to(dev) - start[path].to(dev))[det].double()
-        out[path] = {"det": _pack_bits(det), "aside": int((~det).sum()),
-                     "move": float((moved ** 2).mean().sqrt()) if moved.numel() else 0.0}
-        del det, moved
+        if v1 is None:
+            det = torch.ones(p.shape, dtype=torch.bool, device=dev)
+        else:
+            det = lm_opt.adamw_determined([v1[path].to(dev), v2[path].to(dev)], (1, 2), cfg)
+        # masked sums, not det's indices (8 bytes a dim an element)
+        sq = torch.where(det, (p.to(dev) - start[path].to(dev)).double() ** 2, 0.0).sum()
+        n = int(det.sum())
+        out[path] = {"det": _pack_bits(det), "aside": int(det.numel() - n),
+                     "move": float((sq / n).sqrt()) if n else 0.0}
+        del det, sq
     return out
 
 
@@ -3510,6 +3527,8 @@ def _all_reduce(rows: list, op: str) -> list:
 
     t = torch.tensor(rows, dtype=torch.float64)
     if dist.is_initialized():
+        if dist.get_backend() == "nccl":   # NCCL reduces device tensors only
+            t = t.to(torch.device("cuda", torch.cuda.current_device()))
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
     return t.tolist()
 
@@ -3522,7 +3541,7 @@ def _hold_params(state, ref, what: str, hold_aside: bool = True) -> dict:
     one-process run's AdamW state determines (``ref["rule"]``,
     :func:`lm_rule`) within LM_TRAIN_PARAM_RMS of their RMS move. With
     ``hold_aside`` false the max over the elements the rule sets aside is
-    printed, not held (the full-width hybrid: an open failure). Returns the
+    printed, not held: they are held by :func:`_hold_aside`. Returns the
     worst of each, the count set aside and their largest difference in
     lr."""
     lr = LM_HOLD_OPT["lr"]
@@ -3531,13 +3550,13 @@ def _hold_params(state, ref, what: str, hold_aside: bool = True) -> dict:
         block, idx, counts = _block(p)
         d = (block - ref["end"][path][idx].to(block.device)).abs()
         det = _unpack_bits(ref["rule"][path]["det"], p.shape, block.device)[idx]
-        kept, aside = d[det], d[~det]
-        maxes.append([float(kept.max()) if kept.numel() else 0.0,
-                      float(aside.max()) if aside.numel() else 0.0])
-        sums.append([float((kept.double() ** 2).sum()) if counts else 0.0,
-                     float(kept.numel()) if counts else 0.0])
+        # masked, not indexed: det's indices would take 8 bytes a dim an element
+        maxes.append([float(torch.where(det, d, 0.0).max()) if d.numel() else 0.0,
+                      float(torch.where(det, 0.0, d).max()) if d.numel() else 0.0])
+        sums.append([float(torch.where(det, d.double() ** 2, 0.0).sum()) if counts else 0.0,
+                     float(det.sum()) if counts else 0.0])
         paths.append(path)
-        del block, d, det, kept, aside
+        del block, d, det
     maxes, sums = _all_reduce(maxes, "max"), _all_reduce(sums, "sum")
     worst_max, worst_rms, worst_leaf, bad = 0.0, 0.0, None, []
     n_aside, aside_max = 0, 0.0
@@ -3559,6 +3578,100 @@ def _hold_params(state, ref, what: str, hold_aside: bool = True) -> dict:
             "worst_rms_leaf": worst_leaf, "set_aside": n_aside, "set_aside_max_lr": aside_max}
 
 
+def _host_blocks(tree) -> dict:
+    """``{path: host copy of this rank's block}`` of a tree's leaves."""
+    return {p: PT.local(t).detach().to("cpu", copy=True) for p, t in lm_tree_flatten(tree)}
+
+
+def _gather_main(tree, main: bool) -> dict:
+    """``{path: whole host copy}`` of a tree's leaves on rank 0 (empty on the
+    others): each leaf gathered in turn (a collective on every rank)."""
+    out = {}
+    for path, t in lm_tree_flatten(tree):
+        whole = PT.gather_tensor(t)
+        if main:
+            out[path] = whole.detach().to("cpu", copy=True)
+        del whole
+    return out
+
+
+def _hold_aside(state, mine1: dict, ref, what: str) -> dict:
+    """Every element the rule sets aside (``ref["rule"]``), held on each
+    rank's blocks by ``optimizer.adamw_step_bound`` at LM_MESH_ULPS: after
+    step 1 from the common draw, on both runs' params, m and v after it
+    (the meshed run's in ``mine1``, ``{"params", "m", "v"}`` of this rank's
+    host blocks; the one-process run's in ``ref["forced"]``), and after
+    step 2 from step 1's difference, on both runs' after it (the meshed
+    ``state``; ``ref["end"]``, ``m2``, ``v2``). Returns the count held and
+    the largest share of its bound at each step."""
+    cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+    f = ref["forced"]
+    m2 = dict(lm_tree_flatten(state["opt"]["m"]))
+    v2 = dict(lm_tree_flatten(state["opt"]["v"]))
+    paths, shares, counts = [], [], []
+    for path, p in lm_tree_flatten(state["params"]):
+        block, idx, counted = _block(p)
+        dev = block.device
+        aside = ~_unpack_bits(ref["rule"][path]["det"], p.shape, dev)[idx]
+        one = {k: f[k][path][idx].to(dev)[aside] for k in ("p1", "m1", "v1", "m2", "v2")}
+        one["p2"] = ref["end"][path][idx].to(dev)[aside]
+        mine = {f"{k}1": mine1[k][path].to(dev)[aside] for k in ("params", "m", "v")}
+        mine.update(p1=mine.pop("params1"), p2=block[aside], m2=PT.local(m2[path])[aside],
+                    v2=PT.local(v2[path])[aside])
+        row, bad = [0.0, 0.0], 0
+        if aside.any():
+            d1 = (one["p1"].double() - mine["p1"].double()).abs()
+            b1 = lm_opt.adamw_step_bound(torch.zeros_like(d1), (one["p1"], mine["p1"]),
+                                         (one["m1"], mine["m1"]), (one["v1"], mine["v1"]), 1,
+                                         cfg, LM_MESH_ULPS)
+            d2 = (one["p2"].double() - mine["p2"].double()).abs()
+            b2 = lm_opt.adamw_step_bound(d1, (one["p2"], mine["p2"]), (one["m2"], mine["m2"]),
+                                         (one["v2"], mine["v2"]), 2, cfg, LM_MESH_ULPS)
+            row = [float((d1 / b1).max()), float((d2 / b2).max())]
+            bad = int((d1 > b1).sum() + (d2 > b2).sum())
+            del d1, b1, d2, b2
+        paths.append(path)
+        shares.append(row)
+        counts.append([float(aside.sum()) if counted else 0.0, float(bad)])
+        del one, mine, aside, block
+    shares, counts = _all_reduce(shares, "max"), _all_reduce(counts, "sum")
+    worst, n, bad = [0.0, 0.0], 0, []
+    for path, row, (k, b) in zip(paths, shares, counts):
+        worst = [max(a, c) for a, c in zip(worst, row)]
+        n += int(k)
+        if b:
+            bad.append(f"{path}: {int(b)} element-steps past the bound (largest share "
+                       f"{max(row):.3g})")
+    if bad:
+        raise AssertionError(f"lm_mesh {what}: set-aside params moved past AdamW's bound: "
+                             f"{bad[:8]}")
+    return {"aside_held": n, "aside_bound_share": worst}
+
+
+def _hold_own_step(cfg, mesh, p1: dict, batch, met: dict, kv_chunk: int, what: str) -> dict:
+    """The meshed step 2 evaluated from its own inputs: rank 0 takes the
+    one-process loss and grads at the meshed params after step 1 (``p1``,
+    its whole host copies; the other ranks wait) on its card, and every
+    rank holds the meshed step 2's own loss and grad norm (``met``) to them
+    within LM_TRAIN_METRIC_REL."""
+    dev, vals = mesh.device, [0.0, 0.0, 0.0]
+    if mesh.is_main:
+        params = lm_tree_unflatten({p: t.to(dev) for p, t in p1.items()})
+        loss_fn = lm_ts.make_loss_fn(cfg, lm_ts.TrainConfig(kv_chunk=kv_chunk))
+        loss, aux, g = lm_ts.value_and_grad(loss_fn, params, lm_ts.device_batch(batch, dev))
+        vals = [float(aux["loss"]), float(loss), float(lm_opt.global_norm(g))]
+        del params, g, loss, aux
+        _free()
+    vals = mesh.broadcast_floats(vals)
+    rel = {}
+    for k, w in zip(("loss", "loss_total", "grad_norm"), vals):
+        rel[k] = abs(met[k] - w) / abs(w)
+        if not abs(met[k] - w) <= LM_TRAIN_METRIC_REL * abs(w):
+            raise AssertionError(f"lm_mesh {what} step 2: its own {k} {met[k]} vs one process "
+                                 f"at its params after step 1 {w}")
+    return {"own_step2_rel": rel}
+
+
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """The largest distance of two float32 tensors' elements on the
     ordered float32 line (the CPU tests' ``ulps``)."""
@@ -3568,23 +3681,34 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
-def _hold_forced(cfg, mesh, ref, what: str) -> dict:
-    """The AdamW update on the ranks, on DTensors placed by
+def _sharded_from(src, shardings, dev) -> dict:
+    """The tree of ``shardings`` (a tree of ``NamedSharding``), each leaf
+    this rank's block of the whole tensor ``src[path]`` (host or device) as
+    a DTensor on ``dev``; leaf by leaf, in the tree's order on every rank."""
+    return lm_tree_unflatten({
+        path: PT.shard_tensor(src[path], sh, dev)
+        for path, sh in lm_tree_flatten(shardings, lambda x: isinstance(x, PT.NamedSharding))})
+
+
+def _hold_forced(cfg, mesh, ref, what: str, opt_cfg=None) -> dict:
+    """The optimizer update on the ranks, on DTensors placed by
     ``state_shardings`` (each rank reads its own blocks of the inputs and
     outputs), fed the one-process run's params and moments after its step
     1, its step-2 grads and its step-2 clip scale (the grads scaled by it,
     the update's own clip off, so the float32 norms' sum orders cannot move
-    the scale): params, m and v within LM_MESH_ULPS float32 ulps of its
-    step 2 on every element, the eps-level ones included; the meshed norm
-    of the raw grads within LM_TRAIN_METRIC_REL of the one-process norm."""
+    the scale): under AdamW, params, m and v within LM_MESH_ULPS float32
+    ulps of its step 2 on every element, the eps-level ones included; under
+    Adafactor (``opt_cfg``), params, vr and vc within LM_MESH_ADAFACTOR of
+    each leaf's largest (their ulps printed); the meshed norm of the raw
+    grads within LM_TRAIN_METRIC_REL of the one-process norm."""
     f = ref["forced"]
-    opt_cfg = lm_opt.OptConfig(**LM_HOLD_OPT)
+    opt_cfg = opt_cfg or lm_opt.OptConfig(**LM_HOLD_OPT)
+    moments = ("m", "v") if opt_cfg.name == "adamw" else ("vr", "vc")
     sh = lm_ts.state_shardings(cfg, opt_cfg, mesh)
     dev = mesh.device
-    blocks = lambda what, s: PT.shard_tree(lm_tree_unflatten(f[what]), s, dev)  # noqa: E731
-    params, grads = blocks("p1", sh["params"]), blocks("g2", sh["params"])
-    opt = {"m": blocks("m1", sh["opt"]["m"]), "v": blocks("v1", sh["opt"]["v"]),
-           "count": torch.ones((), dtype=torch.int32)}
+    params, grads = _sharded_from(f["p1"], sh["params"], dev), _sharded_from(f["g2"], sh["params"], dev)
+    opt = {k: _sharded_from(f[f"{k}1"], sh["opt"][k], dev) for k in moments}
+    opt["count"] = torch.ones((), dtype=torch.int32)
     norm = float(lm_opt.global_norm(grads))
     want_norm = ref["metrics"][1]["grad_norm"]
     if not abs(norm - want_norm) <= LM_TRAIN_METRIC_REL * want_norm:
@@ -3593,23 +3717,31 @@ def _hold_forced(cfg, mesh, ref, what: str) -> dict:
         PT.local(g).mul_(f["scale"])
     lm_opt.opt_update(grads, opt, params, dataclasses.replace(opt_cfg, clip_norm=math.inf))
     del grads
-    rows = []
-    for what_, tree, want in (("params", params, ref["end"]), ("m", opt["m"], f["m2"]),
-                              ("v", opt["v"], f["v2"])):
+    rows, stats = [], []
+    for what_, tree, want in (("params", params, ref["end"]),
+                              *((k, opt[k], f[f"{k}2"]) for k in moments)):
         for path, t in lm_tree_flatten(tree):
             block, idx, _ = _block(t)
-            rows.append((what_, path, _ulps(block, want[path][idx].to(dev))))
+            w = want[path][idx].to(dev)
+            rows.append((what_, path))
+            stats.append([_ulps(block, w), float((block - w).abs().max()) if w.numel() else 0.0,
+                          float(w.abs().max()) if w.numel() else 0.0])
+            del w
     del params, opt
-    ulps = _all_reduce([[u] for _, _, u in rows], "max")
-    worst, bad = {"params": 0, "m": 0, "v": 0}, []
-    for (what_, path, _), (u,) in zip(rows, ulps):
+    stats = _all_reduce(stats, "max")
+    worst, bad = {k: 0 for k in ("params", *moments)}, []
+    worst_rel = dict.fromkeys(worst, 0.0)
+    for (what_, path), (u, diff, top) in zip(rows, stats):
         worst[what_] = max(worst[what_], int(u))
-        if u > LM_MESH_ULPS:
-            bad.append(f"{what_} {path}: {int(u)} ulps")
+        worst_rel[what_] = max(worst_rel[what_], diff / max(top, 1e-30))
+        if (u > LM_MESH_ULPS if opt_cfg.name == "adamw"
+                else diff > LM_MESH_ADAFACTOR * top):
+            bad.append(f"{what_} {path}: {int(u)} ulps, {diff:.3g} of {top:.3g}")
     if bad:
-        raise AssertionError(f"lm_mesh {what}: the meshed AdamW update on the one-process "
-                             f"inputs differs: {bad[:8]}")
-    return {"forced_ulps": worst, "forced_norm_equal": norm == want_norm}
+        raise AssertionError(f"lm_mesh {what}: the meshed {opt_cfg.name} update on the "
+                             f"one-process inputs differs: {bad[:8]}")
+    return {"forced_ulps": worst, "forced_err_of_max": worst_rel,
+            "forced_norm_equal": norm == want_norm}
 
 
 def _mesh_serve(cfg, mesh, params, n_cache: int, prompt, extras: dict, want: dict,
@@ -3630,14 +3762,14 @@ def _mesh_serve(cfg, mesh, params, n_cache: int, prompt, extras: dict, want: dic
     errs, ties, argmax_ok, ms = [], 0, True, []
     with torch.no_grad():
         for t in range(len(want["logits"])):
-            torch.cuda.synchronize()
+            _sync(dev)
             t0 = time.perf_counter()
             if t == 0:
                 lg, _ = prefill(params, prompt.to(dev), cache, **extras)
             else:
                 lg, _ = decode(params, want["next"][t - 1].to(dev), start + t - 1, cache)
             lg = PT.gather_tensor(lg)
-            torch.cuda.synchronize()
+            _sync(dev)
             ms.append(1e3 * (time.perf_counter() - t0))
             ref = want["logits"][t].to(dev)
             top = float(ref.abs().max())
@@ -3689,31 +3821,40 @@ def lm_mesh_family_serve_reference(dev) -> dict:
                 continue
             params = lm_model.init_params(cfg, t_random.PRNGKey(0), dev)
             prompt, extras = _family_serve_inputs(cfg, arch)
-            extras = {k: v.to(dev) for k, v in extras.items()}
-            start = prompt.shape[1] + (extras["embeds"].shape[1] if "embeds" in extras else 0)
-            cache = lm_model.init_cache(cfg, LM_MESH_FAMILY_B, LM_MESH_SERVE_CACHE,
-                                        torch.float32, dev)
-            prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=8)
-            logits, nxt, ms = [], [], []
-            with torch.no_grad():
-                for t in range(LM_MESH_SERVE_TICKS + 1):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    if t == 0:
-                        lg, _ = prefill(params, prompt.to(dev), cache, **extras)
-                    else:
-                        lg, _ = decode(params, nxt[-1].to(dev), start + t - 1, cache)
-                    torch.cuda.synchronize()
-                    ms.append(1e3 * (time.perf_counter() - t0))
-                    logits.append(lg.cpu())
-                    nxt.append(lg.argmax(-1).cpu())
-            out[f"{arch}@{d}x{m}"] = {
-                "logits": logits, "next": nxt[:LM_MESH_SERVE_TICKS],
-                "cache": [(p, t.to("cpu", copy=True)) for p, t in lm_tree_flatten(cache)],
-                "prefill_ms": ms[0], "decode_tick_ms": ms[1:]}
+            out[f"{arch}@{d}x{m}"] = lm_serve_run(cfg, params, prompt, extras,
+                                                  LM_MESH_SERVE_CACHE, LM_MESH_SERVE_TICKS, 8,
+                                                  dev)
             runs.append((cfg, out[f"{arch}@{d}x{m}"]))
-            del params, cache
+            del params
     return out
+
+
+def lm_serve_run(cfg, params, prompt, extras: dict, n_cache: int, ticks: int, kv_chunk: int,
+                 dev) -> dict:
+    """One process: ``prompt`` (after any embeds prefix, with any frames)
+    prefilled into a float32 cache of ``n_cache`` positions and ``ticks``
+    greedy ticks: logits, greedy tokens, every cache leaf after the last
+    tick (host), prefill and tick ms."""
+    extras = {k: v.to(dev) for k, v in extras.items()}
+    start = prompt.shape[1] + (extras["embeds"].shape[1] if "embeds" in extras else 0)
+    cache = lm_model.init_cache(cfg, prompt.shape[0], n_cache, torch.float32, dev)
+    prefill, decode = lm_ts.make_serve_steps(cfg, kv_chunk=kv_chunk)
+    logits, nxt, ms = [], [], []
+    with torch.no_grad():
+        for t in range(ticks + 1):
+            _sync(dev)
+            t0 = time.perf_counter()
+            if t == 0:
+                lg, _ = prefill(params, prompt.to(dev), cache, **extras)
+            else:
+                lg, _ = decode(params, nxt[-1].to(dev), start + t - 1, cache)
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg.cpu())
+            nxt.append(lg.argmax(-1).cpu())
+    return {"logits": logits, "next": nxt[:ticks],
+            "cache": [(p, t.to("cpu", copy=True)) for p, t in lm_tree_flatten(cache)],
+            "prefill_ms": ms[0], "decode_tick_ms": ms[1:]}
 
 
 def _hold_cache(cache, want: list, main: bool, what: str) -> dict:
@@ -4023,17 +4164,18 @@ def _lm_mesh_hybrid(mesh, ref: dict, main: bool) -> dict:
     """:func:`_hybrid_cfg` at 2x2: the sharded draw and two AdamW steps held
     to the one-process card run: step 1's metrics and step 2's loss within
     LM_TRAIN_METRIC_REL; the params after step 2 under :func:`_hold_params`
-    with the max over the elements the rule sets aside printed, not held;
-    the step-2 grads taken at the one-process params after step 1 within
-    LM_MESH_GRAD of each leaf's largest and their norm within
-    LM_TRAIN_METRIC_REL of its step-2 grad norm; the AdamW update on its
-    step-2 inputs under :func:`_hold_forced`, on every element. The meshed
-    run's own step-2 grad norm is printed, not held either. Both are open
-    failures of the full-width trajectory (ROADMAP Queue 3 item 17): its
-    grads differ from one process's by more than eps at elements whose
-    grads are below eps, where AdamW's first step moves a param by up to lr
-    / eps times the difference (0.82 lr apart on the H100), and that moves
-    the step-2 grad norm by 1.5e-4 of it.
+    over the elements the rule determines, and every element it sets aside
+    under :func:`_hold_aside` (AdamW's own bound on both runs' steps); the
+    meshed step 2 from its own inputs (:func:`_hold_own_step`: its own grad
+    norm to one process's at the meshed params after step 1); the step-2
+    grads taken at the one-process params after step 1 within LM_MESH_GRAD
+    of each leaf's largest and their norm within LM_TRAIN_METRIC_REL of its
+    step-2 grad norm; the AdamW update on its step-2 inputs under
+    :func:`_hold_forced`, on every element. Where AdamW's denominator is
+    eps-level a rounding-level grad difference moves a param by up to lr /
+    eps times it (0.82 lr apart on the H100), and the next step's grads
+    with it: the whole trajectory is held step by step from each run's own
+    inputs (ROADMAP Queue 3 item 17).
     Step ms (rank 0's step 2 traced), the draw's seconds, the peak."""
     t0 = time.perf_counter()
     cfg = _hybrid_cfg(mesh)
@@ -4062,12 +4204,20 @@ def _lm_mesh_hybrid(mesh, ref: dict, main: bool) -> dict:
             if not abs(a - w) <= LM_TRAIN_METRIC_REL * abs(w):
                 raise AssertionError(f"lm_mesh 2x2 zamba2-7b full width step {i + 1}: "
                                      f"{k} {a} vs {w}")
+        if i == 0:   # the meshed run's own step-2 inputs
+            mine1 = {"params": _host_blocks(state["params"]), "m": _host_blocks(state["opt"]["m"]),
+                     "v": _host_blocks(state["opt"]["v"])}
+            p1 = _gather_main(state["params"], main)
     res["own_grad_norm_rel"] = (abs(res["steps"][1]["grad_norm"] - ref["metrics"][1]["grad_norm"])
                                 / ref["metrics"][1]["grad_norm"])
     res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
-    res.update(_hold_params(state, ref, "2x2 zamba2-7b full width", hold_aside=False))
-    del state, step
+    what = "2x2 zamba2-7b full width"
+    res.update(_hold_params(state, ref, what, hold_aside=False))
+    res.update(_hold_aside(state, mine1, ref, what))
+    del state, step, mine1
     _free()
+    res.update(_hold_own_step(cfg, mesh, p1, stream.batch_at(1), res["steps"][1], 128, what))
+    del p1
     p1 = PT.shard_tree(lm_tree_unflatten(ref["forced"]["p1"]), lm_ts.param_shardings(cfg, mesh),
                        dev)
     prof = PT.RunProfile()
@@ -4085,7 +4235,7 @@ def _lm_mesh_hybrid(mesh, ref: dict, main: bool) -> dict:
                                                    "one-process params"), forced_grad_norm=norm)
     del g
     _free()
-    res.update(_hold_forced(cfg, mesh, ref, "2x2 zamba2-7b full width"))
+    res.update(_hold_forced(cfg, mesh, ref, what))
     res["seconds"] = time.perf_counter() - t0
     _free()
     return res
@@ -4349,9 +4499,9 @@ def lm_mesh_phase(dev, smi: str) -> dict:
     h = hy[0]
     out["hybrid"] = dict({k: h[k] for k in (
         "steps", "param_max_diff_in_lr", "param_rms_diff_of_move", "worst_rms_leaf",
-        "set_aside", "set_aside_max_lr", "own_grad_norm_rel", "grad_err_of_max",
-        "worst_grad_leaf", "forced_grad_norm", "forced_ulps", "forced_norm_equal", "trace",
-        "seconds")},
+        "set_aside", "set_aside_max_lr", "aside_held", "aside_bound_share", "own_grad_norm_rel",
+        "own_step2_rel", "grad_err_of_max", "worst_grad_leaf", "forced_grad_norm", "forced_ulps",
+        "forced_norm_equal", "trace", "seconds")},
         params=hybrid["params"], step_ms=[x["step_ms"] for x in hy],
         draw_s=[x["draw_s"] for x in hy], peak_bytes=[x["peak_bytes"] for x in hy],
         one_process={k: hybrid[k] for k in ("step_ms", "draw_s", "peak_bytes")},
@@ -4366,8 +4516,10 @@ def lm_mesh_phase(dev, smi: str) -> dict:
           f"{h['trace']['wall_ms']:.1f} ms, idle share {h['trace']['device_idle_share']}; "
           f"losses {[round(m['loss'], 6) for m in h['steps']]} and step 1's grad norm within "
           f"{LM_TRAIN_METRIC_REL} of one process (step 2's own grad norm "
-          f"{h['own_grad_norm_rel']:.3g} of it, not held: an open failure, from the set-aside "
-          f"elements after step 1); "
+          f"{h['own_grad_norm_rel']:.3g} of its step 2's, from the set-aside elements after "
+          f"step 1); step 2 from its own inputs: loss, loss_total, grad norm within "
+          f"{[f'{v:.3g}' for v in h['own_step2_rel'].values()]} of one process at the meshed "
+          f"params after step 1 (tolerance {LM_TRAIN_METRIC_REL}); "
           f"step-2 grads at the one-process params after step 1 within "
           f"{h['grad_err_of_max']:.3g} of the leaf's largest (tolerance {LM_MESH_GRAD}; worst "
           f"{h['worst_grad_leaf']}), their norm {h['forced_grad_norm']} vs "
@@ -4376,7 +4528,9 @@ def lm_mesh_phase(dev, smi: str) -> dict:
           f"{h['param_rms_diff_of_move']:.3g} of the move over the determined elements "
           f"(tolerance {LM_TRAIN_PARAM_RMS}; worst "
           f"{h['worst_rms_leaf']}); {h['set_aside']:,} elements set aside, within "
-          f"{h['set_aside_max_lr']:.3g} lr (not held: an open failure); AdamW on the "
+          f"{h['set_aside_max_lr']:.3g} lr, each held by AdamW's bound from both runs' g, m "
+          f"and v ({h['aside_held']:,} held; largest share of the bound after steps 1 and 2 "
+          f"{[f'{v:.3g}' for v in h['aside_bound_share']]}); AdamW on the "
           f"one-process step-2 inputs: ulps {h['forced_ulps']} (tolerance {LM_MESH_ULPS}), "
           f"raw grad norm equal {h['forced_norm_equal']}; {h['seconds']:.1f} s in the ranks, "
           f"{hybrid_s:.1f} s one process, ref.pt written in {save_s:.1f} s", flush=True)

@@ -15,6 +15,7 @@ from repro_torch.core.column import (
     body_potential,
     column_forward,
     column_forward_matmul,
+    column_step,
     crossing_time,
     init_weights,
     wta_inhibit,

@@ -8,16 +8,18 @@ of the port:
 
 All arithmetic is int32, so results are exact on every device.
 :func:`column_forward_matmul` is the ``"matmul"`` backend, the same
-potential as a 0/1 product (exact in float32).
+potential as a 0/1 product (exact in float32). :func:`column_step` is one
+whole gamma wave of a column: forward, WTA and, when it learns, STDP.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import random as _random
-from repro_torch.core.stdp import STDPConfig
+from repro_torch.core.stdp import STDPConfig, stdp_update
 from repro_torch.core.temporal import SPIKE_DTYPE, WaveSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tnn_column import ramp_matmul
@@ -121,3 +123,20 @@ def wta_inhibit(z: torch.Tensor, spec: WaveSpec) -> torch.Tensor:
     winner = (zi * q + idx).amin(dim=-1, keepdim=True) % q
     won = idx == winner
     return torch.where(won & (zi < spec.T), zi, spec.T).to(SPIKE_DTYPE)
+
+
+def column_step(x: torch.Tensor, w: torch.Tensor, cfg: ColumnConfig, rng=None,
+                learn: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full gamma wave, as the reference's ``column_step``: forward ->
+    WTA -> (optionally) STDP (``core.stdp.stdp_update`` in ``cfg.stdp``'s
+    mode, its randomness drawn from the key ``rng`` on x's device).
+
+    x: (B?, p) uint8 spike times; w: (p, q) int8. Returns (z_out (B?, q)
+    uint8 post-WTA spike times, new weights)."""
+    z_pre = column_forward(x, w, cfg.theta, cfg.wave)
+    z_out = wta_inhibit(z_pre, cfg.wave)
+    if learn:
+        if rng is None:
+            raise ValueError("learning step requires an rng key")
+        w = stdp_update(w, x, z_out, rng, cfg.wave, cfg.stdp)
+    return z_out, w

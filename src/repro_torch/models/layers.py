@@ -22,7 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
 from repro_torch.sharding.context import replicate, shard_activation
-from repro_torch.sharding.partition import contiguous_grad, is_sharded, local, local_slices
+from repro_torch.sharding.partition import (
+    contiguous_grad, is_sharded, local, local_slices, pad_blocks,
+)
 
 NEG_INF = -1e30
 
@@ -444,7 +446,7 @@ def mla_prefill(x, p, cfg, positions, kv_chunk: int = 512):
     k = torch.cat([k_nope, k_rope], dim=-1)
     # pad V's head_dim up to qk dim so flash can run one fused pass
     vd, qk = cfg.v_head_dim, cfg.qk_nope_dim + cfg.qk_rope_dim
-    v_p = F.pad(v, (0, qk - vd)) if qk > vd else v
+    v_p = pad_blocks(v, (0, qk - vd)) if qk > vd else v
     attn = flash_attention(q, k, v_p, causal=True, kv_chunk=kv_chunk)[..., :vd]
     return gqa_out(attn, p), (c, kr)
 

@@ -364,7 +364,7 @@ def _mlstm_prefill(h, p, cfg, cache):
 
 
 def _slstm_prefill(h, p, cfg, cache):
-    state, hs = SSM._slstm_scan(SSM.slstm_pre(h, p), tuple(cache), p, cfg)
+    state, hs = SSM._slstm_rows(SSM.slstm_pre(h, p), tuple(cache), p, cfg)
     return SSM._slstm_out(hs, p, cfg, h.dtype), state
 
 

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from repro_torch.models.layers import _proj
 from repro_torch.models.params import ParamSpec
 from repro_torch.sharding.context import shard_activation
-from repro_torch.sharding.partition import contiguous_grad, is_sharded, local_slices
+from repro_torch.sharding.partition import (
+    contiguous_grad, gather_tensor, is_sharded, local_slices, pad_blocks,
+)
 
 F32 = torch.float32
 
@@ -186,15 +188,7 @@ def pad_seq(x: torch.Tensor, before: int) -> torch.Tensor:
     sequence dim made whole first, where it is sharded, and partial sums
     reduced), so no pad op sees a DTensor: DTensor's redistribution fails
     on ``F.pad`` in torch 2.11 (ROADMAP Queue 3 item 14)."""
-    if not is_sharded(x):
-        return F.pad(x, (0, 0, before, 0))
-    from torch.distributed.tensor import DTensor, Replicate
-
-    want = [Replicate() if pl.is_partial() or pl.is_shard(1) else pl for pl in x.placements]
-    if want != list(x.placements):
-        x = x.redistribute(x.device_mesh, want)
-    block = F.pad(contiguous_grad(x.to_local()), (0, 0, before, 0))
-    return DTensor.from_local(block, x.device_mesh, want, run_check=False)
+    return pad_blocks(x, (0, 0, before, 0))
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -448,6 +442,25 @@ def _slstm_scan(pre: torch.Tensor, state, p, cfg):
     return state, torch.stack(hs, dim=1)
 
 
+def _slstm_rows(pre: torch.Tensor, state, p, cfg):
+    """:func:`_slstm_scan`; on DTensors on each rank's batch rows
+    (:func:`_on_rows`) with the recurrent weight made whole: torch 2.11
+    fails a step's sum of the input term (rows over the data axis) and the
+    recurrent term (a partial sum over the model axis) at full width
+    (ROADMAP Queue 3 item 14). For the serve steps, whose state is the
+    cache's."""
+    if not is_sharded(pre):
+        return _slstm_scan(pre, state, p, cfg)
+    whole = {"wr": gather_tensor(p["wr"])}
+
+    def scan(pre_, *st):
+        st, hs = _slstm_scan(pre_, st, whole, cfg)
+        return (*st, hs)
+
+    *state, hs = _on_rows(scan, (pre, *state), pre)
+    return tuple(state), hs
+
+
 def _slstm_out(h, p, cfg, dt_):
     h = _rms(h.to(dt_), cfg.norm_eps, dt_) * p["norm"].to(dt_)
     f = F.gelu(torch.matmul(h, p["wff1"].to(dt_)), approximate="tanh")
@@ -467,5 +480,5 @@ def slstm_train(x: torch.Tensor, p: Dict, cfg) -> torch.Tensor:
 
 
 def slstm_decode(x: torch.Tensor, p: Dict, cfg, state) -> Tuple[torch.Tensor, Tuple]:
-    new = _slstm_cell(state, slstm_pre(x, p), p, cfg)
-    return _slstm_out(new[2], p, cfg, x.dtype), new
+    new, hs = _slstm_rows(slstm_pre(x, p).unsqueeze(1), state, p, cfg)
+    return _slstm_out(hs[:, 0], p, cfg, x.dtype), new

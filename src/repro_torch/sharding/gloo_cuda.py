@@ -74,6 +74,12 @@ def _shard_dim_alltoall(inp, gather_dim: int, shard_dim: int, group_name: str):
     return whole.chunk(n, dim=shard_dim)[rank].contiguous()
 
 
+def installed() -> bool:
+    """Whether :func:`install` has run in this process (a mesh over NCCL
+    must never need it)."""
+    return _LIB is not None
+
+
 def install(key: str = "CUDA") -> None:
     """Register the implementations above for the ``key`` dispatch key
     (once a process; ``"CPU"`` only to check them against gloo's own)."""

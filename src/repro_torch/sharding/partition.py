@@ -315,6 +315,27 @@ def gather_tensor(t):
     return contiguous_grad(t.full_tensor()) if is_sharded(t) else t
 
 
+def pad_blocks(x, pad: Tuple[int, ...]):
+    """``F.pad(x, pad)`` (zeros). On a DTensor each rank pads its own block:
+    the padded dims made whole and partial sums reduced first, the result
+    placed as the block was, so no pad op sees a DTensor: DTensor's
+    redistribution fails on ``F.pad`` in torch 2.11 (ROADMAP Queue 3 item
+    14)."""
+    import torch.nn.functional as F
+
+    if not is_sharded(x):
+        return F.pad(x, pad)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dims = {x.dim() - 1 - i // 2 for i, n in enumerate(pad) if n}
+    want = [Replicate() if pl.is_partial() or any(pl.is_shard(d) for d in dims) else pl
+            for pl in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    block = F.pad(contiguous_grad(x.to_local()), pad)
+    return DTensor.from_local(block, x.device_mesh, want, run_check=False)
+
+
 def local(t):
     """A DTensor's block on this rank (its storage: an in-place op on it
     updates the DTensor), a plain tensor as it is."""

@@ -223,6 +223,45 @@ def adamw_determined(vs, counts, cfg: OptConfig) -> torch.Tensor:
     return out
 
 
+def _ulp32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 spacing at ``|x|`` (float64 in and out)."""
+    a = x.abs().to(F32)
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
+def adamw_step_bound(dprev, new, ms, vs, count: int, cfg: OptConfig,
+                     ulps: int) -> torch.Tensor:
+    """A bound, per element, on ``|p_a - p_b|`` after one AdamW step of two
+    runs a and b of the same leaf, from the update's own formula:
+
+        p = p_prev - lr * (u + wd * p_prev),   u = m^ / (sqrt(v^) + eps)
+
+    so ``|p_a - p_b| <= |dprev| * |1 - lr wd| + lr * |u_a - u_b|`` plus each
+    run's rounding. ``dprev`` is ``|p_a - p_b|`` before the step (zeros for
+    a common start), ``new`` both runs' params after it, ``ms`` and ``vs``
+    both runs' moments after it, ``count`` the step's count (1 for the first
+    step). At count 1, ``m^ = g`` and ``v^ = g^2``, and ``g / (|g| + eps)``
+    has a slope of at most ``1 / eps``, so ``|u_a - u_b| <= |g_a - g_b| /
+    eps`` with g read off each run's m^; at later counts ``u_a - u_b`` is
+    taken from both runs' m^ and v^. The rounding: ``ulps`` float32 ulps of
+    each run's param and of its update ``lr (|u| + wd |p|)``. Float64, of
+    the leaf's shape."""
+    # the float32 scalars adamw_update applies
+    lr = _scalar(schedule(cfg, count))
+    count_f = torch.tensor(count, dtype=F32)
+    c1 = float(_f32(1.0) - torch.pow(_f32(cfg.b1), count_f))
+    c2 = float(_f32(1.0) - torch.pow(_f32(cfg.b2), count_f))
+    eps, wd = _scalar(cfg.eps), _scalar(cfg.weight_decay)
+    u = [(m.double() / c1) / ((v.double() / c2).sqrt() + eps) for m, v in zip(ms, vs)]
+    if count == 1:
+        du = (ms[0].double() - ms[1].double()).abs() / (c1 * eps)
+    else:
+        du = (u[0] - u[1]).abs()
+    tol = sum(_ulp32(p) + lr * _ulp32(uu.abs() + wd * p.double().abs())
+              for p, uu in zip(new, u))
+    return dprev.double() * abs(1.0 - lr * wd) + lr * du + ulps * tol
+
+
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment; beta2 ramp per Shazeer & Stern)
 # ---------------------------------------------------------------------------

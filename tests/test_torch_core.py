@@ -241,6 +241,30 @@ def test_init_weights_range_and_generator():
     _eq(j_column.init_weights(jax.random.PRNGKey(3), 32, 12, j_temporal.WaveSpec()), w1)
 
 
+@pytest.mark.parametrize("learn", [True, False])
+def test_column_step_matches_the_reference(learn):
+    """One gamma wave of a p = 24, q = 6 column on a batch of 16: the post-WTA
+    times and the new weights equal ``repro.core.column_step``'s from the
+    same x, w and key, bit for bit; learning without a key raises."""
+    rng = np.random.default_rng(11)
+    spec_j, spec_t = j_temporal.WaveSpec(), t_temporal.WaveSpec()
+    x = _spikes(rng, (16, 24), spec_t.T)
+    w = _weights(rng, (24, 6), spec_t.w_max)
+    cfg_j = j_column.ColumnConfig(p=24, q=6, theta=20)
+    cfg_t = t_column.ColumnConfig(p=24, q=6, theta=20)
+    z_j, w_j = jax.jit(lambda x, w, k: j_column.column_step(x, w, cfg_j, k, learn))(
+        x, w, jax.random.PRNGKey(7))
+    z_t, w_t = t_column.column_step(torch.from_numpy(x), torch.from_numpy(w), cfg_t,
+                                    t_random.PRNGKey(7), learn)
+    assert z_t.dtype == torch.uint8 and w_t.dtype == torch.int8
+    _eq(z_j, z_t)
+    _eq(w_j, w_t)
+    assert learn == (not np.array_equal(w_t.numpy(), w))
+    if learn:
+        with pytest.raises(ValueError, match="requires an rng key"):
+            t_column.column_step(torch.from_numpy(x), torch.from_numpy(w), cfg_t)
+
+
 # -- launch plans ---------------------------------------------------------------
 
 

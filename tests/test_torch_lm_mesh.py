@@ -391,6 +391,32 @@ def test_mamba_conv_on_dtensors_pads_each_ranks_block(ranks):
         assert err <= 1e-6, k
 
 
+def test_mla_value_pad_on_dtensors_pads_each_ranks_block(ranks):
+    """``partition.pad_blocks``, which pads MLA's V head dim up to the q/k
+    head dim in ``layers.mla_prefill``, equals ``F.pad`` of the whole tensor
+    exactly, forward and grad, with the heads or the padded dim itself over
+    the model axis, and hands no pad op a DTensor: torch 2.11 (the card's)
+    fails ``F.pad`` of a DTensor, which minicpm3-4b's full-width meshed
+    steps met over NCCL (ROADMAP Queue 3 item 14)."""
+    got = dict(ranks["pad_blocks"])
+    assert got.pop("pad_saw_dtensor") is False
+    assert got == {"heads": [0.0, 0.0], "padded_dim": [0.0, 0.0]}
+
+
+def test_slstm_serve_scan_on_dtensors_runs_each_ranks_rows(ranks):
+    """``ssm._slstm_rows`` (the serve steps' sLSTM prefill and decode tick)
+    on DTensors equals the scan on the whole tensors within 1e-6 of each
+    output's largest value, and the cell sees no DTensor: torch 2.11 fails
+    a step's sum of the input term and the recurrent term's partial sum,
+    which xlstm-125m's full-width 2x2 prefill met over NCCL (ROADMAP Queue
+    3 item 14)."""
+    got = dict(ranks["slstm_rows"])
+    assert got.pop("cell_saw_dtensor") is False
+    assert sorted(got) == [1, 5]
+    for S, errs in got.items():
+        assert len(errs) == 5 and max(errs) <= 1e-6, (S, errs)
+
+
 @pytest.mark.parametrize("arch", tm.LM_ARCHS)
 def test_meshed_prefill_and_decode_match_the_reference(ref, ranks, arch):
     """Every tick's logits within 1e-4 of the largest |logit|; after the last

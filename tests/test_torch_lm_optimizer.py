@@ -176,6 +176,44 @@ def test_adamw_determined_sets_aside_eps_level_elements():
     assert T.adamw_determined(vs[1:], (2,), cfg).tolist() == [True, True, False, True, True]
 
 
+
+def test_adamw_step_bound_holds_eps_level_moves_and_catches_a_planted_one():
+    """Two runs of two AdamW steps from one start whose grads differ by a
+    rounding-level delta: at eps-level grads a 1e-9 difference moves a param
+    by up to lr * delta / eps (a large share of lr), and
+    ``adamw_step_bound`` holds every element after both steps (step 1 from
+    the grads read off m, step 2 from both runs' m^ and v^); a param moved
+    by twice its bound fails it."""
+    cfg = T.OptConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    rng = np.random.default_rng(5)
+    p0 = torch.from_numpy(rng.standard_normal(4096).astype(np.float32) * 0.02)
+    g = [torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+         for _ in range(2)]
+    for x in g:
+        x[:1024] *= 1e-8                      # eps-level grads
+    runs = []
+    for delta in (0.0, 1e-9):
+        p, st = p0.clone(), T.opt_init({"w": p0}, cfg)
+        trace = []
+        for gk in g:
+            gk = gk.clone()
+            gk[:1024] += delta
+            T.adamw_update({"w": gk}, st, {"w": p}, cfg)
+            trace.append((p.clone(), st["m"]["w"].clone(), st["v"]["w"].clone()))
+        runs.append(trace)
+    dprev = torch.zeros(4096, dtype=torch.float64)
+    for k, ((pa, ma, va), (pb, mb, vb)) in enumerate(zip(*runs)):
+        bound = T.adamw_step_bound(dprev, (pa, pb), (ma, mb), (va, vb), k + 1, cfg, 2)
+        diff = (pa.double() - pb.double()).abs()
+        assert bool((diff <= bound).all()), k
+        lr = float(T.schedule(cfg, k + 1))
+        assert float(diff[:1024].max()) > 0.05 * lr      # eps-level moves are large
+        planted = pb.double().clone()
+        planted[7] = pa.double()[7] + 2 * bound[7]
+        assert not bool(((pa.double() - planted).abs() <= bound).all())
+        dprev = diff
+
+
 def test_state_layout_and_default():
     params = {"w": torch.zeros(64, 32), "s": torch.zeros(3, 8, 4), "v": torch.zeros(16)}
     ad = T.opt_init(params, T.OptConfig())

@@ -506,6 +506,92 @@ def _mamba_conv(mesh):
             **{f"grad{i}": rel(d.grad, w.grad) for i, (d, w) in enumerate(zip(dts, whole))}}
 
 
+def _pad_blocks(mesh):
+    """``partition.pad_blocks`` as MLA pads V's head dim (``layers.mla_prefill``,
+    (B, S, H, vd) up to the q/k head dim) on DTensors: rows over the data
+    axis and heads over the model axis, then the padded dim itself over the
+    model axis; each against ``F.pad`` of the whole tensor, forward and grad
+    (their largest differences, exactly 0 when right), and whether any pad
+    op was handed a DTensor."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.sharding import partition as PT
+
+    class Pads(TorchFunctionMode):
+        saw_dtensor = False
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if "pad" in getattr(func, "__name__", "") and any(
+                    isinstance(a, DTensor) for a in args):
+                Pads.saw_dtensor = True
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(6)
+    v = torch.randn(4, 6, 4, 8, generator=g)
+    gy = torch.randn(4, 6, 4, 12, generator=g)
+    whole = v.clone().requires_grad_()
+    (F.pad(whole, (0, 4)) * gy).sum().backward()
+    dm = PT.device_mesh(mesh)
+    out = {}
+    for name, places in (("heads", [Shard(0), Shard(2)]), ("padded_dim", [Shard(0), Shard(3)])):
+        dv = distribute_tensor(v, dm, places).requires_grad_()
+        with Pads():
+            y = PT.pad_blocks(dv, (0, 4))
+            (y * distribute_tensor(gy, dm, y.placements)).sum().backward()
+        out[name] = [float((PT.gather_tensor(y.detach()) - F.pad(v, (0, 4))).abs().max()),
+                     float((PT.gather_tensor(dv.grad) - whole.grad).abs().max())]
+    out["pad_saw_dtensor"] = Pads.saw_dtensor
+    return out
+
+
+def _slstm_rows(mesh):
+    """``ssm._slstm_rows`` (the serve steps' sLSTM scan: a prefill of 5
+    steps and a decode tick's one) on DTensors placed as the serve steps
+    place them (rows and the cache's state over the data axis, the
+    recurrent weight's heads over the model axis) against the scan on the
+    whole tensors, seeded: each output's largest difference over its
+    largest value, and whether the cell was handed a DTensor."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import ssm
+    from repro_torch.sharding import partition as PT
+
+    cfg = dataclasses.replace(smoke_config("xlstm-125m"), dtype="float32")
+    H, d = cfg.n_heads, cfg.d_model
+    g = torch.Generator().manual_seed(9)
+    state = (0.5 * torch.randn(4, d, generator=g), 1 + torch.rand(4, d, generator=g),
+             0.5 * torch.randn(4, d, generator=g), 0.1 * torch.randn(4, d, generator=g))
+    wr = 0.1 * torch.randn(H, d // H, 4 * d // H, generator=g)
+    dm = PT.device_mesh(mesh)
+    rows = [Shard(0), Replicate()]
+    cell, saw = ssm._slstm_cell, [False]
+
+    def watched(carry, xt, p, cfg_):
+        saw[0] |= any(isinstance(t, DTensor) for t in (*carry, xt, p["wr"]))
+        return cell(carry, xt, p, cfg_)
+
+    out = {}
+    for S in (5, 1):
+        pre = torch.randn(4, S, 4 * d, generator=g)
+        want = ssm._slstm_scan(pre, state, {"wr": wr}, cfg)
+        ssm._slstm_cell = watched
+        try:
+            got = ssm._slstm_rows(distribute_tensor(pre, dm, rows),
+                                  tuple(distribute_tensor(t, dm, rows) for t in state),
+                                  {"wr": distribute_tensor(wr, dm, [Replicate(), Shard(0)])}, cfg)
+        finally:
+            ssm._slstm_cell = cell
+        out[S] = [float((PT.gather_tensor(a) - b).abs().max() / b.abs().max())
+                  for a, b in zip((*got[0], got[1]), (*want[0], want[1]))]
+    out["cell_saw_dtensor"] = saw[0]
+    return out
+
+
 def _lrnn_decode(mesh):
     """``ssm.lrnn_decode_step`` on DTensors placed as the Mamba2 decode's
     (the state's rows over the data axis, its heads over the model axis)
@@ -598,6 +684,8 @@ def lm_suite(ref_path, work_dir):
     out["lrnn_rows"] = _lrnn_rows(mesh)
     out["lrnn_decode"] = _lrnn_decode(mesh)
     out["mamba_conv"] = _mamba_conv(mesh)
+    out["pad_blocks"] = _pad_blocks(mesh)
+    out["slstm_rows"] = _slstm_rows(mesh)
     out["pipeline"] = _pipeline(ref)
     d = os.path.join(work_dir, "lm_launch")
     args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "4", "--seq", "16",
